@@ -9,9 +9,13 @@ the CUDA toolkit:
 Phases, in order; any failure exits non-zero and none is caught:
 
 1. Environment: torch, CUDA, ``nvcc``, the card's name and power limit,
-   and the time to build the kernels from ``src/repro_torch``.
+   and the time to build the kernels from ``src/repro_torch`` (one
+   ``nvcc`` per source, started together).
 2. Kernel parity: both support-join kernels against their plain PyTorch
-   versions on edge-case grids, requiring exact equality.
+   versions on edge-case grids, requiring exact equality; the
+   flash-attention kernel against its plain version on the grids of
+   ``tests/test_kernels.py`` and more, f32 within 2e-5 with TF32 off and
+   bf16 within 2e-2.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
@@ -23,7 +27,22 @@ Phases, in order; any failure exits non-zero and none is caught:
 5. Card against CPU: the same client on ``device="cpu"`` (plain versions)
    must mine the same patterns, in order, and serve stage 2 with the same
    (value, latency) pairs and statistics.
-6. One JSON line describing each ported kernel, then the result line.
+6. Serving path: codeqwen1.5-7b at full width and depth, bf16, random
+   weights from seed 0 made on the card, ``attention_impl="pallas"``,
+   through ``ServingEngine``: 3 requests of batch 4 x prompt 2,048 x 32
+   greedy tokens.  Every prefill layer must launch the flash kernel
+   (32 x 3) and never its plain version.  One prefill and one decode
+   step are profiled.
+7. Serving against the plain path: the first request's bf16 prefill
+   logits against ``attention_impl="reference"``, within 5% of their
+   standard deviation or within bf16's own floor, measured by running
+   the kernel's plain version in its place; at full width cut to 2
+   layers in f32, all 4 x 32 greedy tokens equal between kernel and
+   plain paths.
+8. Timing of the flash kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (the yardstick; never on the path)
+   at the prefill shape, beside the card's bound.
+9. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -33,6 +52,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import shutil
@@ -40,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import Callable, Iterator, Optional
 
@@ -48,7 +69,20 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/bitmap_support/csrc/bitmap_support.cu"
 TPU_KERNELS = "src/repro/kernels/bitmap_support/bitmap_support.py"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/flash_attention.py:112"
 DEVICE = "cuda"
+
+#: the serving run: codeqwen1.5-7b (the default architecture of the
+#: repo's serving entry points) at full width and depth, 3 requests of
+#: batch 4 x prompt 2,048 x 32 new tokens
+SERVE_ARCH = "codeqwen1.5-7b"
+SERVE_REQUESTS = 3
+SERVE_BATCH = 4
+SERVE_PROMPT = 2048
+SERVE_NEW = 32
+#: the f32 check of greedy tokens, at full width cut to this depth
+F32_LAYERS = 2
 
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth, and the rate
 #: outside the tensor cores, 67 TFLOP/s in float32.  The joins are integer
@@ -57,6 +91,9 @@ DEVICE = "cuda"
 #: lower bound on the card's time
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+#: dense bf16 tensor-core rate (NVIDIA's data sheet): the bound of
+#: attention on bf16 inputs
+PEAK_BF16_FLOP_PER_S = 989e12
 
 
 # ---------------------------------------------------------------------------
@@ -121,10 +158,11 @@ class SEQB:
 # ---------------------------------------------------------------------------
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work on the card, and what bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -244,12 +282,83 @@ def edge_parity(torch, parity: Parity) -> None:
     parity.sstep(slots[0].contiguous(), cand[:0])
 
 
+#: (b, hq, hkv, lq, lk, d): tests/test_kernels.py's flash grid (MHA,
+#: GQA 2, MQA, ragged 96 and 130, D 32/64/128), then decode-aligned
+#: Lq < Lk, Lq > Lk (causal: fully masked rows give 0), GQA group 7
+#: (yi-34b's 56/8), head_dim 16 and a one-row query
+FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
+              (1, 8, 1, 256, 256, 32), (1, 2, 2, 96, 96, 64),
+              (1, 4, 4, 130, 130, 128), (1, 2, 2, 8, 192, 64),
+              (1, 2, 1, 100, 40, 32), (1, 14, 2, 80, 80, 16),
+              (2, 56, 8, 65, 65, 128), (3, 4, 4, 1, 300, 128)]
+#: f32 with TF32 off: both sides are true f32 and differ in summation
+#: order only; bf16: one rounding of the output
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+class FlashParity:
+    """Holds the flash kernel against its plain version on the same
+    inputs: |kernel - plain| <= tol + tol * |plain|, elementwise."""
+
+    def __init__(self, torch, ops, ref):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.cases = 0
+        self.max_err = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check(self, q, k, v, causal: bool) -> None:
+        torch = self.torch
+        got = self.ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = self.ref.flash_attention(q, k, v, causal=causal)
+        name = str(q.dtype).split(".")[-1]
+        what = (f"flash_attention {name} causal={causal} q "
+                f"{tuple(q.shape)} kv {tuple(k.shape)}")
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} "
+                                 f"vs {tuple(want.shape)} {want.dtype}")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        self.max_err[name] = max(self.max_err[name], err)
+        tol = FLASH_TOL[name]
+        if not bool(torch.isfinite(got).all()) or bool(
+                (diff > tol + tol * want.float().abs()).any()):
+            raise AssertionError(f"{what} differs from the plain version "
+                                 f"(max abs err {err}, tol {tol})")
+        self.cases += 1
+
+    @property
+    def max_abs_err(self) -> float:
+        return max(self.max_err.values())
+
+
+def random_qkv(torch, rng, b, hq, hkv, lq, lk, d, dtype):
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(DEVICE, dtype)
+                 for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d)))
+
+
+def flash_edge_parity(torch, parity: FlashParity) -> None:
+    rng = np.random.default_rng(0)
+    for shape in FLASH_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = random_qkv(torch, rng, *shape, dtype)
+            for causal in (True, False):
+                parity.check(q, k, v, causal)
+    # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D)
+    x = torch.from_numpy(rng.standard_normal((2, 70, 4, 32)).astype(
+        np.float32)).to(DEVICE)
+    kv = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(
+        np.float32)).to(DEVICE)
+    parity.check(x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2),
+                 True)
+
+
 def counts_now(ops, ref) -> dict:
     return {"kernel": dict(ops.counts), "plain": dict(ref.counts)}
 
 
-def reset_counts(ops, ref) -> None:
-    for table in (ops.counts, ref.counts):
+def reset_counts(*tables) -> None:
+    for table in tables:
         for name in table:
             table[name] = 0
 
@@ -269,6 +378,212 @@ def serve_stage2(core, client, sessions) -> list:
 
 
 # ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
+    """Phase 6: the serving run on the card; returns what phase 7 needs."""
+    from repro_torch import configs
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(configs.get_config(SERVE_ARCH),
+                              attention_impl="pallas")
+    max_len = SERVE_PROMPT + SERVE_NEW
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.norm}), {cfg.dtype}: {n_params} "
+          f"weights ({cfg.param_count()} by ModelConfig.param_count, which "
+          f"leaves out the norms), made on the card from seed 0 in "
+          f"{init_s:.2f} s")
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+                .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    engine = ServingEngine(cfg, model, ServeConfig(max_len=max_len),
+                           device=DEVICE)
+
+    reset_counts(*count_tables)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, per_request = [], []
+    for prompts in requests:
+        before = engine.stats
+        outs.append(engine.generate(prompts, SERVE_NEW))
+        after = engine.stats
+        per_request.append((after["prefill_s"] - before["prefill_s"],
+                            after["decode_s"] - before["decode_s"]))
+    counted = {"kernel": dict(fa_ops.counts), "plain": dict(fa_ref.counts)}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve path counts: {counted}")
+    want = cfg.n_layers * SERVE_REQUESTS
+    if counted["kernel"]["flash_attention"] != want:
+        raise AssertionError(f"the serving run launched the flash kernel "
+                             f"{counted['kernel']['flash_attention']} times, "
+                             f"not {want}")
+    if any(counted["plain"].values()):
+        raise AssertionError("the serving run ran the plain version")
+    for out in outs:
+        if out.shape != (SERVE_BATCH, SERVE_NEW) or out.dtype != np.int32 \
+                or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"bad generated tokens {out.shape} "
+                                 f"{out.dtype}")
+    for i, (pre_s, dec_s) in enumerate(per_request):
+        print(f"  request {i}: prefill {pre_s:.4f} s, decode {dec_s:.4f} s "
+              f"({SERVE_BATCH * SERVE_NEW / dec_s:.1f} tok/s) [{card}]")
+    st = engine.stats
+    print(f"serve totals: {SERVE_REQUESTS} requests of batch {SERVE_BATCH} x "
+          f"prompt {SERVE_PROMPT} x {SERVE_NEW} new tokens: prefill "
+          f"{st['prefill_s']:.4f} s, decode {st['decode_s']:.4f} s, "
+          f"{st['tokens']} tokens, {engine.tokens_per_s:.1f} tok/s; "
+          f"max_memory_allocated {peak} B [{card}]")
+
+    batch = {"tokens": torch.as_tensor(requests[0], dtype=torch.int64,
+                                       device=DEVICE)}
+    print("profile of one prefill (warm):")
+    profiled(torch, lambda: prefill(cfg, model, batch, max_len))
+    cache = prefill(cfg, model, batch, max_len)[1]
+    tok = torch.as_tensor(outs[0][:, :1], dtype=torch.int64, device=DEVICE)
+    print("profile of one decode step (warm, at position "
+          f"{SERVE_PROMPT}):")
+    profiled(torch, lambda: decode_step(cfg, model, cache, tok))
+    del cache
+    return {"cfg": cfg, "model": model, "requests": requests, "outs": outs,
+            "counts": counted}
+
+
+def serve_against_plain(torch, fa_ref, srv: dict) -> None:
+    """Phase 7, bf16 part: the first request's prefill logits and greedy
+    tokens against ``attention_impl="reference"`` on the same weights.
+
+    bf16 rounds each layer's attention output, so two correct attention
+    paths end 32 layers later a few bf16 ulps of logit apart.  The floor
+    of that noise is measured on the card by running the same model with
+    the kernel's plain version (the same function in plain PyTorch) in
+    the kernel's place.  The kernel path passes when its mean deviation
+    from the reference path is within 1.1 times the floor's, and its
+    largest within 5% of the logits' standard deviation or within 1.5
+    times the floor's largest."""
+    from unittest import mock
+
+    from repro_torch.models import attention, prefill
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg, model = srv["cfg"], srv["model"]
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    max_len = SERVE_PROMPT + SERVE_NEW
+    prompts = srv["requests"][0]
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device=DEVICE)}
+    lk = prefill(cfg, model, batch, max_len)[0].float()
+    lr = prefill(plain_cfg, model, batch, max_len)[0].float()
+    with mock.patch.object(attention, "flash_ops", types.SimpleNamespace(
+            flash_attention=fa_ref.flash_attention)):
+        lp = prefill(cfg, model, batch, max_len)[0].float()
+    for name, logits in (("kernel", lk), ("reference", lr), ("floor", lp)):
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name} prefill logits are not finite")
+    std = float(lr.std())
+    dev = {}
+    for name, logits in (("kernel", lk), ("floor", lp)):
+        d = (logits - lr).abs()
+        dev[name] = (float(d.max()), float(d.mean()))
+        print(f"bf16 last-position prefill logits, {name} path against the "
+              f"reference path: max abs diff {dev[name][0]:.6f} "
+              f"({dev[name][0] / std:.5f} of the logits' std {std:.6f}), "
+              f"mean abs diff {dev[name][1]:.6f}, same argmax in "
+              f"{float((logits.argmax(-1) == lr.argmax(-1)).float().mean()):.4f}"
+              f" of rows")
+    if dev["kernel"][1] > 1.1 * dev["floor"][1] or dev["kernel"][0] > max(
+            0.05 * std, 1.5 * dev["floor"][0]):
+        raise AssertionError("the kernel path's logits drift from the "
+                             "reference path's beyond bf16's floor")
+    plain = ServingEngine(plain_cfg, model, ServeConfig(max_len=max_len),
+                          device=DEVICE).generate(prompts, SERVE_NEW)
+    same = plain == srv["outs"][0]
+    print(f"bf16 greedy tokens, kernel against plain path: agreement "
+          f"{float(same.mean()):.4f} of {plain.size}; "
+          f"{int(same.all(axis=1).sum())} of {SERVE_BATCH} rows equal "
+          f"throughout")
+
+
+def f32_greedy_check(torch, prompts: np.ndarray) -> None:
+    """Phase 7, f32 part: full width cut to F32_LAYERS layers; every
+    greedy token equal between kernel and plain paths."""
+    from repro_torch import configs
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = dataclasses.replace(configs.get_config(SERVE_ARCH),
+                              n_layers=F32_LAYERS, dtype="float32")
+    max_len = SERVE_PROMPT + SERVE_NEW
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device=DEVICE)}
+    outs, logits = {}, {}
+    for impl in ("pallas", "reference"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        logits[impl] = prefill(c, model, batch, max_len)[0]
+        outs[impl] = ServingEngine(c, model, ServeConfig(max_len=max_len),
+                                   device=DEVICE).generate(prompts, SERVE_NEW)
+    diff = float((logits["pallas"] - logits["reference"]).abs().max())
+    same = int((outs["pallas"] == outs["reference"]).sum())
+    print(f"f32, {F32_LAYERS} layers at full width: prefill logits max abs "
+          f"diff {diff:.3e}; greedy tokens equal {same} of "
+          f"{outs['pallas'].size}")
+    if same != outs["pallas"].size:
+        raise AssertionError("f32 greedy tokens differ between the kernel "
+                             "and plain paths")
+
+
+def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
+                 card: str) -> dict:
+    """Phase 8: the kernel, its plain version and SDPA at the prefill
+    shape, on the model's layout ((B, S, H, D) viewed as (B, H, S, D))."""
+    import torch.nn.functional as F
+
+    b, h, l, d = SERVE_BATCH, cfg.n_heads, SERVE_PROMPT, cfg.head_dim
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(
+        np.float32)).to(DEVICE, torch.bfloat16).transpose(1, 2)
+        for _ in range(3))
+    fparity.check(q, k, v, True)
+    sdpa_err = float((F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                      .float() - fa_ref.flash_attention(q, k, v).float())
+                     .abs().max())
+    out = {
+        "ms": time_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
+        "plain_ms": time_ms(torch, lambda: fa_ref.flash_attention(q, k, v),
+                            reps=5),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+    }
+    # causal, Lq == Lk: l (l + 1) / 2 visible (row, column) pairs, each a
+    # d-long dot product and a d-long weighted sum (2 FLOP a term); bytes:
+    # q, k, v read once and out written once
+    flop = 4 * b * h * d * (l * (l + 1) // 2)
+    n_bytes = 4 * b * h * l * d * 2
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flop,
+                                                PEAK_BF16_FLOP_PER_S)
+    out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes)
+    print(f"flash_attention at B {b} H {h} L {l} D {d} bf16 causal: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
+          f"{out['library_ms']:.4f} ms (its max abs diff from the plain "
+          f"version {sdpa_err:.3e}), bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}: {flop:.4e} FLOP, {n_bytes} B) [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -285,10 +600,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch import core
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitmap_support import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    # float32 matmuls in true f32 (TF32 off, also PyTorch's default), so
+    # the plain versions and the f32 serving check are exact f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    count_tables = (ops.counts, ref.counts, fa_ops.counts, fa_ref.counts)
 
     # -- phase 1: environment -------------------------------------------
     smi = subprocess.run(
@@ -300,21 +624,30 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
     print(f"nvcc on PATH: {shutil.which('nvcc') or 'no'}  "
           f"(building with {_build.nvcc_path()})")
+    # one nvcc per source, started together
     t0 = time.perf_counter()
-    ops.load()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(ops.load), pool.submit(fa_ops.load)]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    built = "bitmap_support" in _build.build_logs
-    print(f"kernel build + load: {build_s:.2f} s "
-          f"({'built now' if built else 'found already built'} in "
-          f"{_build.BUILD_DIR})")
-    for line in _build.build_logs.get("bitmap_support", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
+    for name in ("bitmap_support", "flash_attention"):
+        built = name in _build.build_logs
+        print(f"{name}: {'built now' if built else 'found already built'} "
+              f"in {_build.BUILD_DIR}")
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas:", line.strip())
+    print(f"kernel build + load, both libraries: {build_s:.2f} s")
 
     # -- phase 2: kernel parity on edge grids ---------------------------
     parity = Parity(torch, ops, ref)
     edge_parity(torch, parity)
     print(f"parity: {parity.cases} edge cases exact")
+    fparity = FlashParity(torch, fa_ops, fa_ref)
+    flash_edge_parity(torch, fparity)
+    print(f"flash parity: {fparity.cases} cases (f32, bf16; causal and "
+          f"not), max abs err f32 {fparity.max_err['float32']:.3e}, bf16 "
+          f"{fparity.max_err['bfloat16']:.3e}")
 
     # -- phase 3: main path ---------------------------------------------
     seqb = SEQB(SEQBConfig(n_sessions=args.sessions, seed=0))
@@ -350,7 +683,7 @@ def main(argv=None) -> int:
         client.end_session()
     stage1_s = time.perf_counter() - t0
 
-    reset_counts(ops, ref)
+    reset_counts(*count_tables)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n_stored = client.mine_now()
@@ -358,6 +691,8 @@ def main(argv=None) -> int:
     mine_s = time.perf_counter() - t0
     main_counts = counts_now(ops, ref)
     print(f"main path counts: {main_counts}")
+    if fa_ops.counts["flash_attention"] or fa_ref.counts["flash_attention"]:
+        raise AssertionError("the mine ran flash attention")
     if main_counts["kernel"]["frontier_join_support"] == 0:
         raise AssertionError("the main-path mine never launched the "
                              "frontier kernel")
@@ -454,7 +789,7 @@ def main(argv=None) -> int:
           f"{(client.clock.now - t_virtual):.3f} virtual s)")
 
     # -- phase 4: spill path --------------------------------------------
-    reset_counts(ops, ref)
+    reset_counts(*count_tables)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     spilled, spill_minsup = core.mine_dynamic_minsup(
@@ -480,7 +815,7 @@ def main(argv=None) -> int:
         for key in sess:
             cpu_client.read(key)
         cpu_client.end_session()
-    reset_counts(ops, ref)
+    reset_counts(ops.counts, ref.counts)
     t0 = time.perf_counter()
     cpu_client.mine_now()
     cpu_s = time.perf_counter() - t0
@@ -500,7 +835,23 @@ def main(argv=None) -> int:
           f"patterns, same {len(served)} stage-2 (value, latency) pairs and "
           f"statistics; its mine_now took {cpu_s:.2f} s host wall")
 
-    # -- phase 6: the kernels line and the result -------------------------
+    # -- phase 6: serving path ------------------------------------------
+    srv = serve_main_path(torch, count_tables, fa_ops, fa_ref, card)
+
+    # -- phase 7: serving against the plain path -------------------------
+    serve_against_plain(torch, fa_ref, srv)
+    serve_cfg, first_prompts = srv["cfg"], srv["requests"][0]
+    serve_counts = srv["counts"]
+    del srv                         # frees the bf16 model
+    torch.cuda.empty_cache()
+    f32_greedy_check(torch, first_prompts)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: flash timing at the prefill shape -----------------------
+    timing["flash_attention"] = flash_timing(torch, fa_ops, fa_ref, fparity,
+                                             serve_cfg, card)
+
+    # -- phase 9: the kernels line and the result -------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -522,6 +873,19 @@ def main(argv=None) -> int:
                 "nonzero_slot_words": t["nonzero_slot_words"]}
                if "dense_bound_ms" in t else {}),
         })
+    t = timing["flash_attention"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_TPU_KERNEL,
+        "launches": serve_counts["kernel"]["flash_attention"],
+        "path": "serve", "parity_cases": fparity.cases,
+        "max_abs_err": fparity.max_abs_err,
+        "max_abs_err_f32": fparity.max_err["float32"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": t["shape"], "dtype": "bfloat16", "causal": True,
+    })
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

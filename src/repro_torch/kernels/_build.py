@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}   # one per library: builds of
+_locks_guard = threading.Lock()          # two libraries run in parallel
 
 
 def nvcc_path() -> str:
@@ -60,8 +61,11 @@ def load_library(name: str, sources: Sequence[Path],
     """Build (once per source digest) and load ``lib<name>``.
 
     ``signatures`` maps each exported C function to its ctypes argument
-    types; every function returns an ``int`` CUDA error code."""
-    with _lock:
+    types; every function returns an ``int`` CUDA error code.  Libraries
+    of different names build in parallel when called from threads."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

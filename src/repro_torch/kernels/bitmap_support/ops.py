@@ -21,6 +21,7 @@ from pathlib import Path
 import torch
 
 from .. import _build
+from .._launch import launch_args, on_cpu
 from . import ref
 
 __all__ = ["frontier_join_support", "sstep_join_support", "counts",
@@ -57,26 +58,6 @@ def _check(name: str, t: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raises unless all lie on
-    one CUDA device otherwise."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    dev = next(iter(devs))
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
-def _launch_args(t: torch.Tensor) -> tuple[int, int]:
-    dev = t.device.index if t.device.index is not None else \
-        torch.cuda.current_device()
-    return dev, torch.cuda.current_stream(dev).cuda_stream
-
-
 def _splits(p_prefixes: int, k_items: int, n_sessions: int,
             device: int) -> int:
     """Session splits that bring the frontier grid to ~2 blocks per SM."""
@@ -97,14 +78,14 @@ def frontier_join_support(slots: torch.Tensor,
     if cand.shape[1:] != slots.shape[1:]:
         raise ValueError(f"cand {tuple(cand.shape)} does not match "
                          f"slots {tuple(slots.shape)}")
-    if _on_cpu(slots, cand):
+    if on_cpu(slots, cand):
         return ref.frontier_join_support(slots, cand)
     if min(p_prefixes, k_items, n_sessions, n_words) == 0:
         return torch.zeros((p_prefixes, k_items), dtype=torch.int32,
                            device=slots.device)
     if max(p_prefixes, k_items, n_sessions * n_words) > _INT_MAX:
         raise ValueError("frontier too large for 32-bit indices")
-    dev, stream = _launch_args(slots)
+    dev, stream = launch_args(slots)
     splits = _splits(p_prefixes, k_items, n_sessions, dev)
     alloc = torch.zeros if splits > 1 else torch.empty
     support = alloc((p_prefixes, k_items), dtype=torch.int32,
@@ -130,7 +111,7 @@ def sstep_join_support(slots: torch.Tensor, cand: torch.Tensor
     if tuple(slots.shape) != (n_sessions, n_words):
         raise ValueError(f"slots {tuple(slots.shape)} does not match "
                          f"cand {tuple(cand.shape)}")
-    if _on_cpu(slots, cand):
+    if on_cpu(slots, cand):
         return ref.sstep_join_support(slots, cand)
     support = torch.zeros((k_items,), dtype=torch.int32, device=cand.device)
     joined = torch.empty_like(cand)
@@ -139,7 +120,7 @@ def sstep_join_support(slots: torch.Tensor, cand: torch.Tensor
     if max(k_items * math.ceil(n_sessions / _SSTEP_SESSIONS_PER_BLOCK),
            n_sessions * n_words) > _INT_MAX:
         raise ValueError("join too large for 32-bit indices")
-    dev, stream = _launch_args(cand)
+    dev, stream = launch_args(cand)
     err = load().sstep_join_support_launch(
         slots.data_ptr(), cand.data_ptr(), joined.data_ptr(),
         support.data_ptr(), k_items, n_sessions, n_words, dev, stream)

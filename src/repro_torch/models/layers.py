@@ -1,0 +1,113 @@
+"""Shared building blocks: norms, RoPE, initializers, SwiGLU MLP.
+
+The port of ``src/repro/models/layers.py``.  Weights keep the
+reference's ``(in, out)`` orientation (``x @ w``), and the casts stay
+where the reference has them: norms and RoPE compute in f32 and cast back
+to the input's dtype.
+
+Parameters live in :class:`Params` modules, which also answer
+``p["name"]`` as the reference's dicts do, so every function here takes
+either a module or a plain dict of tensors.  Initializers draw from an
+explicit ``torch.Generator`` on the device the weights are made on.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "Params", "dense_init", "embed_init", "norm_apply", "norm_init", "rope",
+    "swiglu_mlp", "mlp_init", "gelu_mlp",
+]
+
+
+class Params(nn.Module):
+    """A named group of weights (no ``forward``): ``p["w"]`` is ``p.w``.
+
+    Weights are inference-only (``requires_grad=False``): training is not
+    ported yet."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+def dense_init(generator: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated-normal fan-in init (LeCun), truncated at ±2 as
+    ``jax.random.truncated_normal(-2, 2)``; drawn in f32 on the
+    generator's device, then cast."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w.mul_(fan_in ** -0.5).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    nn.init.normal_(w, 0.0, 1.0, generator=generator)
+    return w.mul_(0.02).to(dtype)
+
+
+def norm_init(d: int, kind: str, dtype=torch.float32,
+              device=None) -> Params:
+    if kind == "rmsnorm":
+        return Params(scale=torch.ones(d, dtype=dtype, device=device))
+    return Params(scale=torch.ones(d, dtype=dtype, device=device),
+                  bias=torch.zeros(d, dtype=dtype, device=device))
+
+
+def norm_apply(p, x: torch.Tensor, kind: str, eps: float = 1e-6
+               ) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Half-rotation RoPE.  x: (..., S, H, D); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    exponent = torch.arange(0, half, dtype=torch.float32,
+                            device=x.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    # (..., S, 1, 1) * (half,) -> (..., S, 1, half)
+    angles = positions[..., :, None, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp_init(generator: torch.Generator, d: int, f: int, dtype,
+             kind: str = "swiglu") -> Params:
+    if kind == "swiglu":
+        return Params(w1=dense_init(generator, (d, f), dtype=dtype),
+                      w3=dense_init(generator, (d, f), dtype=dtype),
+                      w2=dense_init(generator, (f, d), dtype=dtype))
+    return Params(w1=dense_init(generator, (d, f), dtype=dtype),
+                  w2=dense_init(generator, (f, d), dtype=dtype))
+
+
+def swiglu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    return h @ p["w2"]
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]

@@ -1,5 +1,9 @@
 """The CUDA kernels against their plain versions, on a card.
 
+Float tolerances: f32 within 2e-5 with TF32 off (the plain version's
+matmuls then run in true f32), bf16 within 2e-2 (one bf16 rounding of
+the output).
+
 Marked ``cuda``: without a card the tests skip.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,6 +17,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import mining  # noqa: E402
 from repro_torch.core.sessions import SequenceDatabase  # noqa: E402
 from repro_torch.kernels.bitmap_support import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +88,78 @@ def test_mining_on_the_card_uses_the_kernels_and_equals_cpu(card, budget):
     for field in ("freq_items", "freq_support", "_row_of"):
         np.testing.assert_array_equal(getattr(card_vb, field),
                                       getattr(cpu_vb, field))
+
+
+#: tests/test_kernels.py's (b, hq, hkv, lq, lk, d) flash grid, then
+#: decode-aligned Lq < Lk, Lq > Lk (fully masked rows), GQA group 7
+#: (yi-34b's 56/8) and head_dim 16
+FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
+              (1, 8, 1, 256, 256, 32), (1, 2, 2, 96, 96, 64),
+              (1, 4, 4, 130, 130, 128), (1, 2, 2, 8, 192, 64),
+              (1, 2, 1, 100, 40, 32), (1, 14, 2, 80, 80, 16),
+              (2, 56, 8, 65, 65, 128)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("b,hq,hkv,lq,lk,d", FLASH_GRID)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_equals_plain(card, no_tf32, b, hq, hkv, lq, lk, d,
+                                   causal, dtype):
+    rng = np.random.default_rng(b * 1000 + hq * 10 + lq)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype) for s in ((b, hq, lq, d), (b, hkv, lk, d),
+                                            (b, hkv, lk, d)))
+    before = fa_ops.counts["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["flash_attention"] == before + 1
+    want = fa_ref.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_views(card, no_tf32):
+    """The model's (B, S, H, D) activations, viewed as (B, H, S, D)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 70, 4, 32)).astype(
+        np.float32)).cuda()
+    kv = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(
+        np.float32)).cuda()
+    views = (x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2))
+    got = fa_ops.flash_attention(*views)
+    want = fa_ref.flash_attention(*(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
+    """Reduced codeqwen, f32: the card's greedy tokens equal the CPU's,
+    and each prefill launches the kernel once per layer."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = configs.reduced(configs.get_config("codeqwen1.5-7b"),
+                          attention_impl="pallas")
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    on_cpu = ServingEngine(cfg, model, ServeConfig(max_len=32),
+                           device="cpu").generate(prompts, 8)
+    before = fa_ops.counts["flash_attention"], dict(fa_ref.counts)
+    on_card = ServingEngine(cfg, model.cuda(), ServeConfig(max_len=32),
+                            device="cuda").generate(prompts, 8)
+    np.testing.assert_array_equal(on_card, on_cpu)
+    assert fa_ops.counts["flash_attention"] == before[0] + cfg.n_layers
+    assert fa_ref.counts == before[1]

@@ -1,0 +1,165 @@
+"""The port's flash attention against the JAX package's on the CPU.
+
+On CPU tensors the port's wrapper runs its plain PyTorch version, which
+has the TPU kernel's semantics.  It must agree with the JAX kernel (in
+interpret mode, as tests/test_kernels.py runs it) on the same grids:
+f32 within 2e-5 (the two sum in different orders), bf16 within 2e-2
+(one bf16 rounding of the output).  The CUDA kernel itself is held
+against the plain version on a card, in tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import ops as jax_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+
+#: tests/test_kernels.py's (b, hq, hkv, l, d) grid
+GRID = [(1, 2, 2, 128, 64), (2, 4, 2, 128, 64), (1, 8, 1, 256, 32),
+        (1, 2, 2, 96, 64), (1, 4, 4, 130, 128)]
+
+
+def qkv(rng, b, hq, hkv, lq, lk, d):
+    return (rng.standard_normal((b, hq, lq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, lk, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, lk, d)).astype(np.float32))
+
+
+def port(q, k, v, dtype=torch.float32, **kw) -> np.ndarray:
+    out = ops.flash_attention(*(torch.from_numpy(a).to(dtype)
+                                for a in (q, k, v)), **kw)
+    assert out.dtype == dtype and out.device.type == "cpu"
+    return out.float().numpy()
+
+
+def jax_kernel(q, k, v, dtype=jnp.float32, **kw) -> np.ndarray:
+    out = jax_ops.flash_attention(*(jnp.asarray(a, dtype) for a in (q, k, v)),
+                                  block_q=64, block_k=64, **kw)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("b,hq,hkv,l,d", GRID)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_jax_kernel(b, hq, hkv, l, d, causal):
+    q, k, v = qkv(np.random.default_rng(0), b, hq, hkv, l, l, d)
+    before = ref.counts["flash_attention"]
+    got = port(q, k, v, causal=causal)
+    assert ref.counts["flash_attention"] == before + 1
+    np.testing.assert_allclose(got, jax_kernel(q, k, v, causal=causal),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(8, 192), (1, 130), (64, 65)])
+def test_decode_alignment_lq_lt_lk(lq, lk):
+    """Few q rows attending a long end-aligned kv prefix."""
+    q, k, v = qkv(np.random.default_rng(1), 1, 2, 2, lq, lk, 64)
+    np.testing.assert_allclose(port(q, k, v), jax_kernel(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(100, 40), (130, 1)])
+def test_fully_masked_rows_are_zero_like_the_jax_kernel(lq, lk):
+    """Causal with Lq > Lk: the first Lq - Lk rows see no column and come
+    out 0 (the oracle ref.gqa_attention would give NaN)."""
+    q, k, v = qkv(np.random.default_rng(2), 1, 2, 1, lq, lk, 32)
+    got = port(q, k, v)
+    assert np.isfinite(got).all()
+    assert not got[:, :, :lq - lk].any()
+    assert np.abs(got[:, :, lq - lk:]).sum() > 0
+    np.testing.assert_allclose(got, jax_kernel(q, k, v), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_group_seven(causal):
+    """yi-34b's 56 q heads over 8 kv heads, cut to 14 over 2."""
+    q, k, v = qkv(np.random.default_rng(3), 1, 14, 2, 80, 80, 16)
+    np.testing.assert_allclose(port(q, k, v, causal=causal),
+                               jax_kernel(q, k, v, causal=causal),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_dtypes(dtype, tol):
+    q, k, v = qkv(np.random.default_rng(2), 1, 2, 1, 128, 128, 64)
+    got = port(q, k, v, dtype=getattr(torch, dtype))
+    want = jax_kernel(q, k, v, dtype=getattr(jnp, dtype))
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_sm_scale():
+    q, k, v = qkv(np.random.default_rng(5), 1, 2, 2, 64, 64, 16)
+    np.testing.assert_allclose(port(q, k, v, sm_scale=0.3),
+                               jax_kernel(q, k, v, sm_scale=0.3),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_causality_property():
+    """Changing future kv must not change past outputs."""
+    q, k, v = qkv(np.random.default_rng(4), 1, 2, 2, 128, 128, 64)
+    out1 = port(q, k, v)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, :, 100:] = 99.0
+    v2[:, :, 100:] = -99.0
+    out2 = port(q, k2, v2)
+    np.testing.assert_allclose(out1[:, :, :100], out2[:, :, :100],
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_strided_views_equal_contiguous():
+    """The model hands over (B, S, H, D) activations as (B, H, S, D)
+    views; the result equals that of contiguous copies."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 70, 4, 32)).astype(
+        np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(
+        np.float32))
+    views = (x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2))
+    got = ops.flash_attention(*views)
+    want = ops.flash_attention(*(t.contiguous() for t in views))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_empty_kv_gives_zeros():
+    q = torch.ones((1, 2, 5, 16))
+    k = torch.ones((1, 2, 0, 16))
+    out = ops.flash_attention(q, k, k, causal=False)
+    assert out.shape == q.shape and not out.any()
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("float16", TypeError),
+    ("mixed_dtypes", TypeError),
+    ("head_dim_48", ValueError),
+    ("rank_3", ValueError),
+    ("head_dim_strided", ValueError),
+    ("heads_not_multiple", ValueError),
+    ("kv_shapes_differ", ValueError),
+    ("batch_differs", ValueError),
+])
+def test_wrapper_rejects(case, exc):
+    q = torch.zeros((1, 4, 8, 32))
+    k = torch.zeros((1, 2, 8, 32))
+    v = torch.zeros((1, 2, 8, 32))
+    if case == "float16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "mixed_dtypes":
+        q = q.to(torch.bfloat16)
+    elif case == "head_dim_48":
+        q, k, v = (torch.zeros(t.shape[:3] + (48,)) for t in (q, k, v))
+    elif case == "rank_3":
+        q = q[0]
+    elif case == "head_dim_strided":
+        q = torch.zeros((1, 4, 8, 64))[..., ::2]
+    elif case == "heads_not_multiple":
+        q = torch.zeros((1, 3, 8, 32))
+    elif case == "kv_shapes_differ":
+        v = torch.zeros((1, 2, 9, 32))
+    elif case == "batch_differs":
+        k = v = torch.zeros((2, 2, 8, 32))
+    with pytest.raises(exc):
+        ops.flash_attention(q, k, v)

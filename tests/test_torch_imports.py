@@ -23,6 +23,9 @@ PROBE = """
 import json, sys
 import repro_torch, repro_torch.core
 import repro_torch.kernels.bitmap_support.ops
+import repro_torch.kernels.flash_attention.ops
+import repro_torch.configs, repro_torch.models, repro_torch.serving
+import repro_torch.launch.serve
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
@@ -59,3 +62,12 @@ def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"mining.py", "palpatine.py", "ops.py", "ref.py",
             "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {port + "kernels/flash_attention/ops.py",
+            port + "kernels/flash_attention/ref.py",
+            port + "configs/base.py", port + "configs/codeqwen15_7b.py",
+            port + "models/layers.py", port + "models/attention.py",
+            port + "models/transformer.py", port + "models/convert.py",
+            port + "models/io.py", port + "serving/engine.py",
+            port + "launch/serve.py"} <= rel
