@@ -10,12 +10,18 @@ Phases, in order; any failure exits non-zero and none is caught:
 
 1. Environment: torch, CUDA, ``nvcc``, the card's name and power limit,
    and the time to build the kernels from ``src/repro_torch`` (one
-   ``nvcc`` per source, started together).
+   ``nvcc`` per source, started together), with ``ptxas``'s registers,
+   shared memory and spills; the count of ``HGMMA`` (tensor-core)
+   instructions in the tensor-core flash kernel's SASS, by
+   ``cuobjdump -sass``, which must be above 0.
 2. Kernel parity: both support-join kernels against their plain PyTorch
-   versions on edge-case grids, requiring exact equality; the
-   flash-attention kernel against its plain version on the grids of
-   ``tests/test_kernels.py`` and more, f32 within 2e-5 with TF32 off and
-   bf16 within 2e-2.
+   versions on edge-case grids, requiring exact equality; both
+   flash-attention kernels (the tensor-core route, bf16 at head_dim 64
+   and 128, and the CUDA-core route, f32 and small bf16 head_dims)
+   against their plain version on the grids of ``tests/test_kernels.py``
+   and more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
+   Lq < Lk = 513, GQA 56/8, MQA), f32 within 2e-5 with TF32 off and bf16
+   within 2e-2.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
@@ -30,18 +36,19 @@ Phases, in order; any failure exits non-zero and none is caught:
 6. Serving path: codeqwen1.5-7b at full width and depth, bf16, random
    weights from seed 0 made on the card, ``attention_impl="pallas"``,
    through ``ServingEngine``: 3 requests of batch 4 x prompt 2,048 x 32
-   greedy tokens.  Every prefill layer must launch the flash kernel
-   (32 x 3) and never its plain version.  One prefill and one decode
-   step are profiled.
+   greedy tokens.  Every prefill layer must launch the tensor-core flash
+   kernel (32 x 3), never the CUDA-core one and never the plain version.
+   One prefill and one decode step are profiled.
 7. Serving against the plain path: the first request's bf16 prefill
    logits against ``attention_impl="reference"``, within 5% of their
    standard deviation or within bf16's own floor, measured by running
    the kernel's plain version in its place; at full width cut to 2
-   layers in f32, all 4 x 32 greedy tokens equal between kernel and
-   plain paths.
-8. Timing of the flash kernel, its plain version and PyTorch's
+   layers in f32 (the CUDA-core route), all 4 x 32 greedy tokens equal
+   between kernel and plain paths.
+8. Timing of each flash kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick; never on the path)
-   at the prefill shape, beside the card's bound.
+   at the prefill shape, beside the card's bound: the tensor-core kernel
+   in bf16, the CUDA-core kernel in f32.
 9. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
@@ -55,6 +62,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -69,7 +77,13 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 KERNEL_SOURCE = "src/repro_torch/kernels/bitmap_support/csrc/bitmap_support.cu"
 TPU_KERNELS = "src/repro/kernels/bitmap_support/bitmap_support.py"
-FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+#: route of ops.route -> (its kernel's name in the kernels line, source)
+FLASH_KERNELS = {
+    "tensor_core": ("flash_attention", "src/repro_torch/kernels/"
+                    "flash_attention/csrc/flash_attention_wgmma.cu"),
+    "cuda_core": ("flash_attention_cuda_core", "src/repro_torch/kernels/"
+                  "flash_attention/csrc/flash_attention.cu"),
+}
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/flash_attention.py:112"
 DEVICE = "cuda"
 
@@ -291,44 +305,64 @@ FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
               (1, 4, 4, 130, 130, 128), (1, 2, 2, 8, 192, 64),
               (1, 2, 1, 100, 40, 32), (1, 14, 2, 80, 80, 16),
               (2, 56, 8, 65, 65, 128), (3, 4, 4, 1, 300, 128)]
+#: bf16 only, the tensor-core kernel's 128-row tiles at their edges:
+#: ragged Lq = Lk = 1,000; Lq > Lk (rows with no visible column, a whole
+#: q tile of them); Lq < Lk = 4 x 128 + 1; GQA 56/8 at D 128 over several
+#: tiles; MQA at D 64; B * Hq = 65,664, past a grid's y limit of 65,535,
+#: two q tiles each
+FLASH_TC_EDGES = [(1, 4, 2, 1000, 1000, 128), (1, 4, 2, 300, 100, 128),
+                  (1, 2, 2, 200, 513, 128), (1, 56, 8, 300, 300, 128),
+                  (2, 8, 1, 300, 300, 64), (513, 128, 8, 129, 129, 64)]
 #: f32 with TF32 off: both sides are true f32 and differ in summation
 #: order only; bf16: one rounding of the output
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 class FlashParity:
-    """Holds the flash kernel against its plain version on the same
-    inputs: |kernel - plain| <= tol + tol * |plain|, elementwise."""
+    """Holds each flash kernel against the plain version on the same
+    inputs: |kernel - plain| <= tol + tol * |plain|, elementwise.  Cases
+    and errors are kept by route and by dtype."""
 
     def __init__(self, torch, ops, ref):
         self.torch, self.ops, self.ref = torch, ops, ref
-        self.cases = 0
-        self.max_err = {"float32": 0.0, "bfloat16": 0.0}
+        self.cases = {r: 0 for r in ops.ROUTES}
+        self.max_err = {(r, t): 0.0 for r in ops.ROUTES
+                        for t in ("float32", "bfloat16")}
 
     def check(self, q, k, v, causal: bool) -> None:
         torch = self.torch
+        which = self.ops.route(q.dtype, q.shape[-1])
+        before = self.ops.counts[which]
         got = self.ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        if self.ops.counts[which] != before + 1:
+            raise AssertionError(f"flash_attention did not launch its "
+                                 f"{which} kernel")
         want = self.ref.flash_attention(q, k, v, causal=causal)
         name = str(q.dtype).split(".")[-1]
-        what = (f"flash_attention {name} causal={causal} q "
+        what = (f"flash_attention ({which}) {name} causal={causal} q "
                 f"{tuple(q.shape)} kv {tuple(k.shape)}")
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} "
                                  f"vs {tuple(want.shape)} {want.dtype}")
         diff = (got.float() - want.float()).abs()
         err = float(diff.max()) if diff.numel() else 0.0
-        self.max_err[name] = max(self.max_err[name], err)
+        self.max_err[which, name] = max(self.max_err[which, name], err)
         tol = FLASH_TOL[name]
         if not bool(torch.isfinite(got).all()) or bool(
                 (diff > tol + tol * want.float().abs()).any()):
             raise AssertionError(f"{what} differs from the plain version "
                                  f"(max abs err {err}, tol {tol})")
-        self.cases += 1
+        self.cases[which] += 1
 
-    @property
-    def max_abs_err(self) -> float:
-        return max(self.max_err.values())
+    def max_abs_err(self, which: str) -> float:
+        return max(e for (r, _), e in self.max_err.items() if r == which)
+
+    def summary(self) -> str:
+        return "; ".join(
+            f"{r}: {self.cases[r]} cases, max abs err " + ", ".join(
+                f"{t} {self.max_err[r, t]:.3e}" for t in ("float32", "bfloat16"))
+            for r in self.cases)
 
 
 def random_qkv(torch, rng, b, hq, hkv, lq, lk, d, dtype):
@@ -344,13 +378,32 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
             q, k, v = random_qkv(torch, rng, *shape, dtype)
             for causal in (True, False):
                 parity.check(q, k, v, causal)
-    # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D)
-    x = torch.from_numpy(rng.standard_normal((2, 70, 4, 32)).astype(
-        np.float32)).to(DEVICE)
-    kv = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(
-        np.float32)).to(DEVICE)
-    parity.check(x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2),
-                 True)
+    for shape in FLASH_TC_EDGES:
+        q, k, v = random_qkv(torch, rng, *shape, torch.bfloat16)
+        for causal in (True, False):
+            parity.check(q, k, v, causal)
+    # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D),
+    # on each route (the tensor-core kernel reads them through TMA maps)
+    for (s, hq, hkv, d), dtype in (((70, 4, 2, 32), torch.float32),
+                                   ((300, 8, 2, 128), torch.bfloat16)):
+        x = torch.from_numpy(rng.standard_normal((2, s, hq, d)).astype(
+            np.float32)).to(DEVICE, dtype)
+        kv = torch.from_numpy(rng.standard_normal((2, s, hkv, d)).astype(
+            np.float32)).to(DEVICE, dtype)
+        parity.check(x.transpose(1, 2), kv.transpose(1, 2),
+                     kv.transpose(1, 2), True)
+
+
+def sass_count(lib_path: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in a built library's SASS, by the
+    ``cuobjdump`` of the toolkit that built it."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def counts_now(ops, ref) -> dict:
@@ -425,10 +478,11 @@ def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"serve path counts: {counted}")
     want = cfg.n_layers * SERVE_REQUESTS
-    if counted["kernel"]["flash_attention"] != want:
-        raise AssertionError(f"the serving run launched the flash kernel "
-                             f"{counted['kernel']['flash_attention']} times, "
-                             f"not {want}")
+    if counted["kernel"] != {"flash_attention": want, "tensor_core": want,
+                             "cuda_core": 0}:
+        raise AssertionError(f"the serving run did not launch the "
+                             f"tensor-core flash kernel, and only it, {want} "
+                             f"times: {counted['kernel']}")
     if any(counted["plain"].values()):
         raise AssertionError("the serving run ran the plain version")
     for out in outs:
@@ -515,9 +569,11 @@ def serve_against_plain(torch, fa_ref, srv: dict) -> None:
           f"throughout")
 
 
-def f32_greedy_check(torch, prompts: np.ndarray) -> None:
+def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> int:
     """Phase 7, f32 part: full width cut to F32_LAYERS layers; every
-    greedy token equal between kernel and plain paths."""
+    greedy token equal between kernel and plain paths.  Returns the
+    launches of the CUDA-core flash kernel, the route of f32, on the
+    kernel path."""
     from repro_torch import configs
     from repro_torch.models import init_params, prefill
     from repro_torch.serving import ServeConfig, ServingEngine
@@ -530,11 +586,18 @@ def f32_greedy_check(torch, prompts: np.ndarray) -> None:
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                        device=DEVICE)}
     outs, logits = {}, {}
+    reset_counts(fa_ops.counts)
     for impl in ("pallas", "reference"):
         c = dataclasses.replace(cfg, attention_impl=impl)
         logits[impl] = prefill(c, model, batch, max_len)[0]
         outs[impl] = ServingEngine(c, model, ServeConfig(max_len=max_len),
                                    device=DEVICE).generate(prompts, SERVE_NEW)
+    launched = dict(fa_ops.counts)
+    if launched != {"flash_attention": 2 * F32_LAYERS, "tensor_core": 0,
+                    "cuda_core": 2 * F32_LAYERS}:
+        raise AssertionError(f"the f32 kernel path did not launch the "
+                             f"CUDA-core flash kernel once a layer in each "
+                             f"of its 2 prefills: {launched}")
     diff = float((logits["pallas"] - logits["reference"]).abs().max())
     same = int((outs["pallas"] == outs["reference"]).sum())
     print(f"f32, {F32_LAYERS} layers at full width: prefill logits max abs "
@@ -543,44 +606,62 @@ def f32_greedy_check(torch, prompts: np.ndarray) -> None:
     if same != outs["pallas"].size:
         raise AssertionError("f32 greedy tokens differ between the kernel "
                              "and plain paths")
+    return launched["cuda_core"]
 
 
 def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
                  card: str) -> dict:
-    """Phase 8: the kernel, its plain version and SDPA at the prefill
-    shape, on the model's layout ((B, S, H, D) viewed as (B, H, S, D))."""
+    """Phase 8: each flash kernel, the plain version and SDPA at the
+    prefill shape, on the model's layout ((B, S, H, D) viewed as
+    (B, H, S, D)): the tensor-core route in bf16, the CUDA-core route in
+    f32 (TF32 off).  Returns each route's timing."""
     import torch.nn.functional as F
 
     b, h, l, d = SERVE_BATCH, cfg.n_heads, SERVE_PROMPT, cfg.head_dim
-    rng = np.random.default_rng(1)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(
-        np.float32)).to(DEVICE, torch.bfloat16).transpose(1, 2)
-        for _ in range(3))
-    fparity.check(q, k, v, True)
-    sdpa_err = float((F.scaled_dot_product_attention(q, k, v, is_causal=True)
-                      .float() - fa_ref.flash_attention(q, k, v).float())
-                     .abs().max())
-    out = {
-        "ms": time_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
-        "plain_ms": time_ms(torch, lambda: fa_ref.flash_attention(q, k, v),
-                            reps=5),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
-    }
     # causal, Lq == Lk: l (l + 1) / 2 visible (row, column) pairs, each a
     # d-long dot product and a d-long weighted sum (2 FLOP a term); bytes:
     # q, k, v read once and out written once
     flop = 4 * b * h * d * (l * (l + 1) // 2)
-    n_bytes = 4 * b * h * l * d * 2
-    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flop,
-                                                PEAK_BF16_FLOP_PER_S)
-    out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes)
-    print(f"flash_attention at B {b} H {h} L {l} D {d} bf16 causal: kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
-          f"{out['library_ms']:.4f} ms (its max abs diff from the plain "
-          f"version {sdpa_err:.3e}), bound {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']}: {flop:.4e} FLOP, {n_bytes} B) [{card}]")
-    return out
+    timing = {}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOP_PER_S),
+                        (torch.float32, PEAK_OPS_PER_S)):
+        which = fa_ops.route(dtype, d)
+        rng = np.random.default_rng(1)
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(
+            np.float32)).to(DEVICE, dtype).transpose(1, 2) for _ in range(3))
+        fparity.check(q, k, v, True)
+        sdpa_err = float((F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True)
+                          .float() - fa_ref.flash_attention(q, k, v).float())
+                         .abs().max())
+        qkv = (q, k, v)
+        out = {
+            "ms": time_ms(torch, lambda a=qkv: fa_ops.flash_attention(*a)),
+            "plain_ms": time_ms(torch,
+                                lambda a=qkv: fa_ref.flash_attention(*a),
+                                reps=5),
+            "library_ms": time_ms(
+                torch, lambda a=qkv: F.scaled_dot_product_attention(
+                    *a, is_causal=True)),
+        }
+        n_bytes = 4 * b * h * l * d * q.element_size()
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flop, peak)
+        out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
+                   dtype=str(dtype).split(".")[-1],
+                   tflop_s=flop / out["ms"] / 1e9,
+                   bound_share=out["bound_ms"] / out["ms"])
+        print(f"flash_attention ({which}) at B {b} H {h} L {l} D {d} "
+              f"{out['dtype']} causal: kernel {out['ms']:.4f} ms "
+              f"({out['tflop_s']:.1f} TFLOP/s, {out['bound_share']:.4f} of "
+              f"the bound), "
+              f"plain {out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} "
+              f"ms (its max abs diff from the plain version "
+              f"{sdpa_err:.3e}), bound {out['bound_ms']:.4f} ms "
+              f"({out['bound_by']}: {flop:.4e} FLOP at {peak:.3g} FLOP/s, "
+              f"{n_bytes} B) [{card}]")
+        timing[which] = out
+        del q, k, v, qkv
+    return timing
 
 
 # ---------------------------------------------------------------------------
@@ -626,18 +707,33 @@ def main(argv=None) -> int:
           f"(building with {_build.nvcc_path()})")
     # one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(ops.load), pool.submit(fa_ops.load)]:
-            fut.result()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futs = {"bitmap_support": pool.submit(ops.load),
+                **{r: pool.submit(fa_ops.load, r) for r in fa_ops.ROUTES}}
+        libs = {name: fut.result() for name, fut in futs.items()}
     build_s = time.perf_counter() - t0
-    for name in ("bitmap_support", "flash_attention"):
-        built = name in _build.build_logs
-        print(f"{name}: {'built now' if built else 'found already built'} "
-              f"in {_build.BUILD_DIR}")
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+    for name, lib in libs.items():
+        # lib<name>_<digest>.so
+        log = _build.build_logs.get(Path(lib._name).stem[3:].rsplit("_", 1)[0])
+        print(f"{name}: {'found already built' if log is None else 'built now'}"
+              f" as {lib._name}")
+        for line in (log or "").splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "warning", "Performance")):
                 print("  ptxas:", line.strip())
-    print(f"kernel build + load, both libraries: {build_s:.2f} s")
+    print(f"kernel build + load, {len(libs)} libraries: {build_s:.2f} s")
+    tc = libs["tensor_core"]
+    for d in (64, 128):
+        print(f"tensor-core flash kernel at head_dim {d}: "
+              f"{tc.flash_attention_wgmma_smem_bytes(d)} B of dynamic "
+              f"shared memory a block")
+    tc_instructions = {op: sass_count(tc._name, op) for op in ("HGMMA",
+                                                                "HMMA")}
+    print(f"tensor-core flash kernel SASS: {tc_instructions['HGMMA']} HGMMA, "
+          f"{tc_instructions['HMMA']} HMMA instructions")
+    if tc_instructions["HGMMA"] == 0:
+        raise AssertionError("the tensor-core flash kernel has no HGMMA "
+                             "instruction")
 
     # -- phase 2: kernel parity on edge grids ---------------------------
     parity = Parity(torch, ops, ref)
@@ -645,9 +741,7 @@ def main(argv=None) -> int:
     print(f"parity: {parity.cases} edge cases exact")
     fparity = FlashParity(torch, fa_ops, fa_ref)
     flash_edge_parity(torch, fparity)
-    print(f"flash parity: {fparity.cases} cases (f32, bf16; causal and "
-          f"not), max abs err f32 {fparity.max_err['float32']:.3e}, bf16 "
-          f"{fparity.max_err['bfloat16']:.3e}")
+    print(f"flash parity (causal and not): {fparity.summary()}")
 
     # -- phase 3: main path ---------------------------------------------
     seqb = SEQB(SEQBConfig(n_sessions=args.sessions, seed=0))
@@ -844,12 +938,11 @@ def main(argv=None) -> int:
     serve_counts = srv["counts"]
     del srv                         # frees the bf16 model
     torch.cuda.empty_cache()
-    f32_greedy_check(torch, first_prompts)
+    f32_launches = f32_greedy_check(torch, fa_ops, first_prompts)
     torch.cuda.empty_cache()
 
     # -- phase 8: flash timing at the prefill shape -----------------------
-    timing["flash_attention"] = flash_timing(torch, fa_ops, fa_ref, fparity,
-                                             serve_cfg, card)
+    flash = flash_timing(torch, fa_ops, fa_ref, fparity, serve_cfg, card)
 
     # -- phase 9: the kernels line and the result -------------------------
     launches = {"frontier_join_support": ("main", main_counts),
@@ -873,18 +966,28 @@ def main(argv=None) -> int:
                 "nonzero_slot_words": t["nonzero_slot_words"]}
                if "dense_bound_ms" in t else {}),
         })
-    t = timing["flash_attention"]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_TPU_KERNEL,
-        "launches": serve_counts["kernel"]["flash_attention"],
-        "path": "serve", "parity_cases": fparity.cases,
-        "max_abs_err": fparity.max_abs_err,
-        "max_abs_err_f32": fparity.max_err["float32"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "shape": t["shape"], "dtype": "bfloat16", "causal": True,
-    })
+    # the tensor-core kernel is the serve path's; the CUDA-core one runs
+    # the f32 check of phase 7
+    flash_paths = {"tensor_core": ("serve", serve_counts["kernel"]),
+                   "cuda_core": ("f32_check", {"cuda_core": f32_launches})}
+    for which, (name, source) in FLASH_KERNELS.items():
+        path, counted = flash_paths[which]
+        t = flash[which]
+        kernels.append({
+            "name": name, "route": "cuda", "ops_route": which,
+            "source": source, "replaces": FLASH_TPU_KERNEL,
+            "launches": counted[which], "path": path,
+            "parity_cases": fparity.cases[which],
+            "max_abs_err": fparity.max_abs_err(which),
+            "max_abs_err_f32": fparity.max_err[which, "float32"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "tflop_s": t["tflop_s"], "bound_share": t["bound_share"],
+            "shape": t["shape"], "dtype": t["dtype"], "causal": True,
+            **({"tensor_core_instructions": tc_instructions["HGMMA"]}
+               if which == "tensor_core" else {}),
+        })
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,7 @@
-// Forward flash attention for Hopper (sm_90a), bound to Python through ctypes.
+// Forward flash attention for Hopper (sm_90a) on the CUDA cores, bound to
+// Python through ctypes: the route of float32 at every head_dim and of
+// bfloat16 at head_dim 16 and 32.  bfloat16 at 64 and 128 runs on the
+// tensor cores, in flash_attention_wgmma.cu.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
 // src/repro/kernels/flash_attention/flash_attention.py, and computes what
@@ -25,11 +28,13 @@
 // and written in place, with no transposed copy.  Ragged Lq and Lk are
 // masked here: the wrapper never pads.
 //
-// Bound: at the serving prefill (B 4, H 32, L 2,048, D 128, bf16, causal)
-// the work is 1.4e11 FLOP against 268 MB of q, k, v and out, about 500
-// operations per byte, so operations bound it, not bytes.
-// Design (the simple first version; tensor cores, TMA and warp
-// specialisation come later): one block of 256 threads per (b*Hq + h,
+// Bound: at the serving prefill's shape (B 4, H 32, L 2,048, D 128,
+// causal) in f32 the work is 1.375e11 FLOP against 537 MB of q, k, v and
+// out; at the 67 TFLOP/s of f32 outside the tensor cores operations bound
+// it (2.05 ms), not bytes.
+// Design (f32 on the tensor cores would round to TF32, so f32 stays on the
+// CUDA cores; this design's bf16 form, 6.8 ms at the prefill shape, gave
+// way to the tensor-core kernel): one block of 256 threads per (b*Hq + h,
 // 64-row q tile) keeps its q tile in shared memory as f32 and loops over
 // 64-column k tiles.  Each thread holds a 4x4 patch of the score tile and
 // a 4 x D/16 patch of the accumulator in registers, on the CUDA cores.
@@ -42,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -257,27 +264,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// float32 at D 16, 32, 64 and 128; bfloat16 at D 16 and 32 only
 template <typename T>
 cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
                        void* out, Strides qs, Strides ks, Strides vs,
                        Strides os, int B, int Hq, int Hkv, int Lq, int Lk,
                        int causal, float sm_scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
-                           causal, sm_scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
-                           causal, sm_scale, stream);
-    case 64:
+  if (D == 16)
+    return launch<T, 16>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
+                         causal, sm_scale, stream);
+  if (D == 32)
+    return launch<T, 32>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
+                         causal, sm_scale, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    if (D == 64)
       return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
                            causal, sm_scale, stream);
-    case 128:
+    if (D == 128)
       return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
                             causal, sm_scale, stream);
-    default:
-      return cudaErrorInvalidValue;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -285,8 +292,8 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // Returns the CUDA error of the launch (0 on success); the kernel runs
-// asynchronously on `stream` of card `device`.  dtype: 0 float32,
-// 1 bfloat16 (q, k, v and out alike).  Strides are in elements, in the
+// asynchronously on `stream` of card `device`.  dtype: 0 float32 (D 16,
+// 32, 64 or 128), 1 bfloat16 (D 16 or 32); q, k, v and out alike.  Strides are in elements, in the
 // order (batch, head, position) for q, k, v and out; head_dim is
 // contiguous.  B * Hq, Lq and Lk must be positive.
 int flash_attention_launch(const void* q, const void* k, const void* v,

@@ -1,0 +1,555 @@
+// Forward flash attention on Hopper's tensor cores (sm_90a), bf16 at
+// head_dim 64 and 128, bound to Python through ctypes.
+//
+// Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
+// src/repro/kernels/flash_attention/flash_attention.py for bf16 inputs,
+// and computes what that kernel computes (and what flash_attention.cu,
+// which keeps float32 and the small head dims, computes):
+//
+//   out[b,h,r] = sum_c p[r,c] v[b,h/group,c] / sum_c p[r,c]
+//   p[r,c]     = exp(q[b,h,r] . k[b,h/group,c] * sm_scale - m[r]) where
+//                column c is visible to row r, else 0
+//
+// Column c is visible to row r when c < Lk and, if causal,
+// c <= r + (Lk - Lq) (the mask is aligned to the end of the kv sequence).
+// Scores, the running max m, the normalizer l and the accumulator are f32.
+// A row that sees no column comes out 0, by the TPU kernel's three guards
+// (m_safe = 0 where the running max is -inf, alpha = 0 where the previous
+// max is -inf, a denominator of 1 where l = 0).  One deliberate difference:
+// p is rounded to bf16 before the product with v, which the tensor cores
+// take in bf16 (the TPU kernel multiplies f32 p by f32 v); l sums the f32 p.
+// The kernel needs sm_scale > 0: the wrapper folds a sign or a zero into q.
+//
+// Bound: at the serving prefill (B 4, H 32, L 2,048, D 128, causal) the
+// work is 1.375e11 FLOP of bf16 products against 268 MB of q, k, v and
+// out, about 500 FLOP a byte, above the H100's ridge of about 295: the
+// tensor cores' 989 TFLOP/s bound it (0.139 ms), not memory.
+//
+// Design: the shape of a Hopper GEMM with the online softmax between its
+// two products.
+//  * One block of 288 threads owns a 128-row q tile of one (b, h): two
+//    consumer warpgroups of 64 rows each, and one producer warp.  The grid
+//    is 1-D over (B * Hq) x q tiles (up to 2^31 - 1 blocks), the q tile
+//    varying fastest: the blocks run head by head, so the 16 q tiles
+//    of a 2,048-row head re-read its K and V from L2, not from HBM (with
+//    every head's longest tile first, the prefill's 134 MB of K and V
+//    cycled through the 50 MB L2 and the kernel took 1.2x as long);
+//    within a head the q tiles are issued longest causal row first.
+//  * The producer's lane 0 issues TMA copies (rank-4 tensor maps over
+//    (D, S, H, B) built from the caller's strides, so the model's
+//    (B, S, H, D) views are read in place) into 128-byte-swizzled shared
+//    memory: the q tile once, then a 2-stage ring of 128-row K and V tiles
+//    with mbarriers for full and empty slots.  Rows past Lq or Lk arrive as
+//    zeros.  A 128-column tile is stored as D/64 regions of 128 rows x 128
+//    bytes.  At D = 128 that is 32 KB of q and 2 x 64 KB of K and V, so one
+//    block runs on an SM.
+//  * S = Q K^T is D/16 wgmma.m64n128k16 per warpgroup, both operands read
+//    from shared memory, f32 out.  Masks are applied only on tiles that
+//    cross the diagonal or the ragged end; tiles wholly in the future are
+//    never loaded.  The softmax runs in registers: each thread holds 2 rows
+//    x 32 columns, reduces a row with two quad shuffles, and takes
+//    exp2(s * sm_scale * log2(e) - m) as one FMA and one ex2.approx.
+//  * O += P V: P is rounded to bf16 in registers, where the accumulator
+//    layout of the first product is the A-operand layout of the second,
+//    and fed to wgmma.m64n64k16 with V read from shared memory as an
+//    MN-major (transposed) B operand, one instruction per 64 columns of D.
+//    O stays in registers, rescaled by alpha each tile.
+//  * Epilogue: O / l in f32, rounded to bf16, stored through the (B, S, H,
+//    D) strides of the output.
+// Tried on the H100 and measured no faster (PERF.md, Findings): issuing
+// S_{j+1} with P_j V_j and running softmax j+1 meanwhile; the two
+// warpgroups taking turns on the tensor cores; a producer warpgroup with
+// setmaxnreg; 256 threads with thread 0 issuing the copies; a third
+// stage.  ptxas held 288- and 384-thread blocks to 168 registers and
+// serialized the wgmma of most overlapped forms.
+// A wait on an mbarrier that has not completed after about ten seconds
+// traps, so a fault in the pipeline ends the launch with an error instead
+// of hanging the card.
+
+#include <cuda.h>            // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 128;          // q rows per block, kv rows per tile
+constexpr int kConsumerWarps = 8;              // two warpgroups
+constexpr int kThreads = 32 * (kConsumerWarps + 1);
+constexpr int kStages = 2;
+constexpr int kRegionBytes = kBlock * 128;     // 128 rows x 64 bf16 columns
+constexpr long long kWatchdogCycles = 1ll << 34;
+constexpr int kMaxDevices = 64;
+
+struct Strides {
+  long long b, h, s;                 // in elements; head_dim stride is 1
+};
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return kBlock * D * 2; }
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // 1024 bytes of slack to align the swizzled tiles, q, the K and V ring,
+  // then 7 barriers
+  return 1024 + tile_bytes<D>() * (1 + 2 * kStages) + 8 * (1 + 3 * kStages);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// waits for the completion of the phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > kWatchdogCycles) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand whose
+// 1024-byte swizzle atoms (8 rows x 128 bytes) start 1024-aligned.
+// Offsets are in bytes: lbo between 64-element chunks of the leading
+// (contiguous) dimension, sbo between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;       // layout: 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// d[64] (+)= A (64 x 16, K-major in shared memory) . B (16 x 128, K-major
+// in shared memory); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] += A (64 x 16 bf16 in registers) . B (16 x 64, MN-major in shared
+// memory)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz): exp2f adds a range fix-up of
+// three instructions per call for results below 2^-126, which p never
+// needs (a weight below 2^-126 of the row's largest adds nothing)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Accumulator layout of wgmma.m64nN (f32), for thread `lane` of warp w of
+// the warpgroup: element j sits at row 16 w + lane / 4 + 8 ((j / 2) % 2)
+// and column 8 (j / 4) + 2 (lane % 4) + j % 2.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ out, Strides os,
+                             int Hq, int group, int Lq, int Lk, int causal,
+                             float scale_log2) {
+  constexpr int kRegions = D / 64;
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;
+  const uint32_t s_k = s_q + kTile;                   // kStages tiles
+  const uint32_t s_v = s_k + kStages * kTile;         // kStages tiles
+  const uint32_t bar_q = s_v + kStages * kTile;
+  const uint32_t bar_k = bar_q + 8;                   // kStages: K landed
+  const uint32_t bar_v = bar_k + 8 * kStages;         // kStages: V landed
+  const uint32_t bar_free = bar_v + 8 * kStages;      // kStages: slot read
+
+  // a 1-D grid over (B * Hq) x q tiles, the q tile varying fastest
+  const int q_tiles = (Lq + kBlock - 1) / kBlock;
+  const int bh = blockIdx.x / q_tiles;
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int hk = h / group;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * kBlock;  // longest first
+  const int offset = Lk - Lq;                             // end-aligned causal
+  int n_tiles = (Lk + kBlock - 1) / kBlock;
+  if (causal) {
+    // the last column any row of this tile sees; later tiles are skipped
+    const int last_visible = min(q0 + kBlock, Lq) - 1 + offset;
+    n_tiles = last_visible < 0 ? 0 : min(n_tiles, last_visible / kBlock + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (warp == kConsumerWarps) {
+    // producer: one thread keeps the ring full
+    if (lane == 0 && n_tiles > 0) {
+      mbar_expect_tx(bar_q, kTile);
+      for (int r = 0; r < kRegions; ++r)
+        tma_load_4d(s_q + r * kRegionBytes, &tm_q, bar_q, 64 * r, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages)   // the slot's previous tile has been read
+          mbar_wait(bar_free + 8 * s, ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_k + 8 * s, kTile);
+        for (int r = 0; r < kRegions; ++r)
+          tma_load_4d(s_k + s * kTile + r * kRegionBytes, &tm_k, bar_k + 8 * s,
+                      64 * r, j * kBlock, hk, b);
+        mbar_expect_tx(bar_v + 8 * s, kTile);
+        for (int r = 0; r < kRegions; ++r)
+          tma_load_4d(s_v + s * kTile + r * kRegionBytes, &tm_v, bar_v + 8 * s,
+                      64 * r, j * kBlock, hk, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread owns
+  // rows row0 and row0 + 8 of them
+  const int wg = warp / 4;
+  const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_wg = s_q + 64 * wg * 128;   // its 64 rows in each region
+
+  float o[kRegions][32];
+#pragma unroll
+  for (int r = 0; r < kRegions; ++r)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[r][j] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};   // scaled by sm_scale log2(e)
+  float l_part[2] = {0.f, 0.f};              // this thread's columns only
+
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int k0 = j * kBlock;
+
+    // S = Q K^T
+    float sc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;   // overwritten (scale_d = 0)
+    mbar_wait(bar_k + 8 * s, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * kRegionBytes + (ks % 4) * 32;
+      wgmma_m64n128k16_ss(sc, smem_desc(q_wg + off, 16, 1024),
+                          smem_desc(s_k + s * kTile + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // mask the ragged end and, on tiles crossing the diagonal, the future
+    const int wg_first = q0 + 64 * wg;
+    if (k0 + kBlock > Lk || (causal && k0 + kBlock - 1 > wg_first + offset)) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int c = k0 + 8 * (i / 4) + col0 + i % 2;
+        const int r = row0 + 8 * ((i / 2) % 2);
+        if (c >= Lk || (causal && c > r + offset)) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax, rows row0 (rr 0) and row0 + 8 (rr 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_cur = fmaxf(m_run[rr], mx[rr] * scale_log2);
+      // guard fully masked rows: exp(-inf - -inf) would be NaN
+      m_safe[rr] = m_cur == -INFINITY ? 0.f : m_cur;
+      alpha[rr] =
+          m_run[rr] == -INFINITY ? 0.f : fast_exp2(m_run[rr] - m_safe[rr]);
+      m_run[rr] = m_cur;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -m_safe[(i / 2) % 2]));
+      sum[(i / 2) % 2] += sc[i];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      l_part[rr] = l_part[rr] * alpha[rr] + sum[rr];
+#pragma unroll
+    for (int r = 0; r < kRegions; ++r)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[r][i] *= alpha[(i / 2) % 2];
+
+    // P in bf16, laid out as the A operand: k-step kk takes columns
+    // 16 kk .. 16 kk + 15, which are accumulator elements 8 kk .. 8 kk + 7
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+
+    // O += P V
+    mbar_wait(bar_v + 8 * s, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < kRegions; ++r)
+        wgmma_m64n64k16_rs(
+            o[r], pa[kk],
+            smem_desc(s_v + s * kTile + r * kRegionBytes + kk * 16 * 128, 1024,
+                      1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_free + 8 * s);
+  }
+
+  // epilogue: O / l, rounded to bf16
+  __nv_bfloat16* ob = out + b * os.b + h * os.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_part[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = l == 0.f ? 1.f : l;   // a fully masked row gives 0
+    const int r = row0 + 8 * rr;
+    if (r >= Lq) continue;
+    __nv_bfloat16* orow = ob + r * os.s;
+#pragma unroll
+    for (int reg = 0; reg < kRegions; ++reg)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int i = 4 * nb + 2 * rr;
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * reg + 8 * nb + col0) =
+            __floats2bfloat162_rn(o[reg][i] / denom, o[reg][i + 1] / denom);
+      }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found at run time: no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A rank-4 map over (D, L, H, B) of a bf16 tensor with the given
+// (batch, head, position) strides in elements, in boxes of 64 x 128 rows.
+CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
+                  int D, int L, int H, int B, Strides st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, kBlock, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out of bounds: zeros
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           Strides qs, Strides ks, Strides vs, Strides os, int B, int Hq,
+           int Hkv, int Lq, int Lk, int causal, float sm_scale, int device,
+           cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v;
+  CUresult res = make_map(&tm_q, encode, q, D, Lq, Hq, B, qs);
+  if (res == CUDA_SUCCESS) res = make_map(&tm_k, encode, k, D, Lk, Hkv, B, ks);
+  if (res == CUDA_SUCCESS) res = make_map(&tm_v, encode, v, D, Lk, Hkv, B, vs);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
+  const auto kernel = flash_attention_wgmma_kernel<D>;
+  constexpr size_t smem = smem_bytes<D>();
+  // above 48 KB a block's shared memory must be asked for, once a card
+  static bool configured[kMaxDevices] = {};
+  if (device >= kMaxDevices || !configured[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < kMaxDevices) configured[device] = true;
+  }
+  const long long blocks = (long long)((Lq + kBlock - 1) / kBlock) * B * Hq;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), os, Hq, Hq / Hkv, Lq,
+      Lk, causal, (float)(sm_scale * 1.4426950408889634));   // log2(e)
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, a CUDA runtime error of the launch, or 10000 plus
+// the CUresult when a tensor map cannot be built.  q, k, v and out
+// are bfloat16 with a contiguous head_dim, 16-byte-aligned bases and
+// (batch, head, position) strides in elements that are multiples of 8;
+// D is 64 or 128; sm_scale > 0; B * Hq, Lq and Lk positive, and
+// B * Hq * ceil(Lq / 128) at most 2^31 - 1.  The kernel runs
+// asynchronously on `stream` of card `device`.
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 void* out, int B, int Hq, int Hkv, int Lq,
+                                 int Lk, int D, int causal, float sm_scale,
+                                 long long q_sb, long long q_sh, long long q_ss,
+                                 long long k_sb, long long k_sh, long long k_ss,
+                                 long long v_sb, long long v_sh, long long v_ss,
+                                 long long o_sb, long long o_sh, long long o_ss,
+                                 int device, cudaStream_t stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Hkv <= 0 || Hq % Hkv != 0 || !(sm_scale > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
+      vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
+                        causal, sm_scale, device, stream);
+    case 128:
+      return launch<128>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
+                         causal, sm_scale, device, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of a block at head_dim D (64 or 128), in bytes;
+// 0 for another D.
+int flash_attention_wgmma_smem_bytes(int D) {
+  if (D == 64) return (int)smem_bytes<64>();
+  if (D == 128) return (int)smem_bytes<128>();
+  return 0;
+}
+
+}  // extern "C"

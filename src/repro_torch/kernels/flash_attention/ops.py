@@ -1,21 +1,34 @@
-"""Public wrapper of the flash-attention kernel.
+"""Public wrapper of the flash-attention kernels.
 
 The port's counterpart of ``src/repro/kernels/flash_attention/ops.py``.
 
 * On CPU tensors it runs the plain version in :mod:`.ref`.
-* On CUDA tensors it launches the hand-written kernel of
-  ``csrc/flash_attention.cu`` (built at first use) or raises.  It never
-  falls back.
+* On CUDA tensors it launches the hand-written kernel of its route, built
+  at first use, or raises.  It never falls back: not to the other route,
+  not to the plain version.
 
-The kernel takes each tensor's (batch, head, position) strides and needs
+Two kernels compute the same function, and :func:`route` names which one
+a call takes from its dtype and head_dim alone:
+
+* ``"tensor_core"``: bfloat16 at head_dim 64 or 128 (every dense and GQA
+  config of the repo), ``csrc/flash_attention_wgmma.cu``: ``wgmma`` on
+  the tensor cores, TMA loads.  It reads its inputs through TMA tensor
+  maps, so each base must be 16-byte aligned and each stride a positive
+  multiple of 16 bytes; the wrapper raises ``ValueError`` otherwise.
+* ``"cuda_core"``: float32 at every head_dim, and bfloat16 at 16 or 32,
+  ``csrc/flash_attention.cu``: f32 FMAs on the CUDA cores.  Float32 stays
+  here because the tensor cores would round it to TF32.
+
+Each kernel takes its tensors' (batch, head, position) strides and needs
 only the head_dim to be contiguous, so a transposed view of the model's
-(B, S, H, D) activations goes in without a copy; its result is a
+(B, S, H, D) activations goes in without a copy; the result is a
 (B, Hq, Lq, D) view of a (B, Lq, Hq, D) buffer, which the model turns
 back into (B, S, H, D) for free.  Masking of ragged lengths happens in
-the kernel: nothing is padded.
+the kernels: nothing is padded.
 
 ``counts`` holds the kernel launches since the last reset: the wrapper
-adds one where it launches its kernel and nowhere else.
+adds one to ``"flash_attention"`` and one to its route's count where it
+launches a kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -30,30 +43,54 @@ from .. import _build
 from .._launch import launch_args, on_cpu
 from . import ref
 
-__all__ = ["flash_attention", "counts", "load", "HEAD_DIMS"]
+__all__ = ["flash_attention", "counts", "load", "route", "HEAD_DIMS",
+           "ROUTES"]
 
-_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    # q, k, v, out, dtype, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale,
-    # (batch, head, position) strides of q, k, v and out, device, stream
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, ctypes.c_float, *[_L] * 12, _I, _P],
+#: q, k, v and out's (batch, head, position) strides, device, stream
+_TAIL = [*[_L] * 12, _I, _P]
+#: route -> (library, sources, its C functions' argument types)
+_LIBRARIES = {
+    "cuda_core": ("flash_attention", (_CSRC / "flash_attention.cu",), {
+        # q, k, v, out, dtype, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale, ...
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, ctypes.c_float, *_TAIL]}),
+    "tensor_core": ("flash_attention_wgmma",
+                    (_CSRC / "flash_attention_wgmma.cu",), {
+        # q, k, v, out, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale, ...
+        "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _I, _I, ctypes.c_float, *_TAIL],
+        # D -> dynamic shared memory of a block, in bytes
+        "flash_attention_wgmma_smem_bytes": [_I]}),
 }
-#: head_dims the kernel is instantiated for
+ROUTES = tuple(_LIBRARIES)
+#: head_dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
+_TENSOR_CORE_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_Q = 64             # q rows per block (kBlockQ)
-_MAX_Q_TILES = 65_535     # the grid's y limit
-_INT_MAX = 2 ** 31 - 1
+_BLOCK_Q = {"cuda_core": 64, "tensor_core": 128}   # q rows per block
+_MAX_Q_TILES = 65_535     # the CUDA-core grid's y limit
+_INT_MAX = 2 ** 31 - 1    # a grid's x limit
+_TMA_ALIGN = 16           # bytes, of a TMA tensor map's base and strides
 
-#: kernel launches since the last reset
-counts = {"flash_attention": 0}
+#: kernel launches since the last reset: the total and each route's
+counts = {"flash_attention": 0, "tensor_core": 0, "cuda_core": 0}
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library."""
-    return _build.load_library("flash_attention", _SOURCES, _SIGNATURES)
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a call with these inputs launches on a card:
+    ``"tensor_core"`` for bfloat16 at head_dim 64 or 128, else
+    ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def load(which: str = "tensor_core") -> ctypes.CDLL:
+    """Build (at first use) and load the library of route ``which``."""
+    name, sources, signatures = _LIBRARIES[which]
+    return _build.load_library(name, sources, signatures)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -80,6 +117,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{k.shape[1]}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    if route(q.dtype, d) == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % _TMA_ALIGN:
+                raise ValueError(f"{name}'s data is not {_TMA_ALIGN}-byte "
+                                 f"aligned, as the tensor-core kernel's TMA "
+                                 f"loads need")
+            step = _TMA_ALIGN // t.element_size()
+            if any(t.stride(i) <= 0 or t.stride(i) % step
+                   for i in range(3) if t.shape[i] > 1):
+                raise ValueError(f"{name}'s strides {t.stride()} are not "
+                                 f"positive multiples of {_TMA_ALIGN} bytes, "
+                                 f"as the tensor-core kernel's TMA loads "
+                                 f"need")
+
+
+def _check_grid(which: str, b: int, hq: int, lq: int) -> None:
+    """Raise ``ValueError`` where route ``which``'s grid cannot hold the
+    call: (B * Hq, q tiles) on the CUDA cores, 1-D over (B * Hq) x q tiles
+    on the tensor cores."""
+    q_tiles = -(-lq // _BLOCK_Q[which])
+    if which == "tensor_core":
+        fits = b * hq * q_tiles <= _INT_MAX
+    else:
+        fits = b * hq <= _INT_MAX and q_tiles <= _MAX_Q_TILES
+    if not fits:
+        raise ValueError(f"q ({b}, {hq}, {lq}, D) exceeds the {which} "
+                         f"kernel's grid")
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    """(batch, head, position) strides; a dim of size 1 is never stepped
+    over, so it gets the head_dim, which any kernel takes."""
+    return [s if n > 1 else t.shape[3] for n, s in zip(t.shape[:3],
+                                                        t.stride()[:3])]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,15 +158,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """q (B, Hq, Lq, D), k/v (B, Hkv, Lk, D) -> (B, Hq, Lq, D) in q's dtype.
 
-    Forward GQA attention with f32 accumulation and an end-aligned causal
-    mask (row r sees columns <= r + Lk - Lq); a row that sees no column
-    gives 0.  ``sm_scale`` defaults to ``D ** -0.5``.  float32 or bfloat16;
-    head_dim one of :data:`HEAD_DIMS`."""
+    Forward GQA attention with f32 scores and accumulation and an
+    end-aligned causal mask (row r sees columns <= r + Lk - Lq); a row that
+    sees no column gives 0.  ``sm_scale`` defaults to ``D ** -0.5``.
+    float32 or bfloat16; head_dim one of :data:`HEAD_DIMS`."""
     _check(q, k, v)
     if on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
+    which = route(q.dtype, d)
     if sm_scale is None:
         sm_scale = d ** -0.5
     out = torch.empty((b, lq, hq, d), dtype=q.dtype,
@@ -104,15 +176,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if lk == 0:                 # every row sees nothing
         return out.zero_()
-    if b * hq > _INT_MAX or -(-lq // _BLOCK_Q) > _MAX_Q_TILES:
-        raise ValueError(f"q {tuple(q.shape)} exceeds the kernel's grid")
+    _check_grid(which, b, hq, lq)
     dev, stream = launch_args(q)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = load().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, hq, hkv, lq, lk, d, int(causal),
-        float(sm_scale), *strides, dev, stream)
+    if which == "tensor_core" and sm_scale <= 0:
+        # the kernel folds a positive scale into its exp2; the same scores
+        # come from (sign * q) . k * |scale|, and a zero scale from q = 0
+        q = q.neg() if sm_scale < 0 else torch.zeros_like(q)
+        sm_scale = -sm_scale if sm_scale < 0 else 1.0
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    rest = [b, hq, hkv, lq, lk, d, int(causal), float(sm_scale),
+            *(s for t in (q, k, v, out) for s in _strides(t)), dev, stream]
+    if which == "cuda_core":
+        err = load(which).flash_attention_launch(*ptrs, _DTYPES[q.dtype],
+                                                 *rest)
+    else:
+        err = load(which).flash_attention_wgmma_launch(*ptrs, *rest)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({which}) launch failed: "
+                           f"{_describe(err)}")
     counts["flash_attention"] += 1
+    counts[which] += 1
     return out
+
+
+def _describe(err: int) -> str:
+    if err >= 10000:
+        return f"cuTensorMapEncodeTiled returned CUresult {err - 10000}"
+    return f"CUDA error {err}"

@@ -92,12 +92,17 @@ def test_mining_on_the_card_uses_the_kernels_and_equals_cpu(card, budget):
 
 #: tests/test_kernels.py's (b, hq, hkv, lq, lk, d) flash grid, then
 #: decode-aligned Lq < Lk, Lq > Lk (fully masked rows), GQA group 7
-#: (yi-34b's 56/8) and head_dim 16
+#: (yi-34b's 56/8) and head_dim 16; then the edges of the tensor-core
+#: kernel's 128-row tiles (bf16 at D 64 and 128 takes that route):
+#: ragged 1,000, Lq > Lk over a whole masked q tile, Lq < Lk = 4 x 128 + 1,
+#: GQA 56/8 at D 128 over several tiles, MQA at D 64
 FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
               (1, 8, 1, 256, 256, 32), (1, 2, 2, 96, 96, 64),
               (1, 4, 4, 130, 130, 128), (1, 2, 2, 8, 192, 64),
               (1, 2, 1, 100, 40, 32), (1, 14, 2, 80, 80, 16),
-              (2, 56, 8, 65, 65, 128)]
+              (2, 56, 8, 65, 65, 128), (1, 4, 2, 1000, 1000, 128),
+              (1, 4, 2, 300, 100, 128), (1, 2, 2, 200, 513, 128),
+              (1, 56, 8, 300, 300, 128), (2, 8, 1, 300, 300, 64)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -119,28 +124,79 @@ def test_flash_kernel_equals_plain(card, no_tf32, b, hq, hkv, lq, lk, d,
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to("cuda", dtype) for s in ((b, hq, lq, d), (b, hkv, lk, d),
                                             (b, hkv, lk, d)))
-    before = fa_ops.counts["flash_attention"]
+    which = fa_ops.route(dtype, d)
+    before = dict(fa_ops.counts)
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa_ops.counts["flash_attention"] == before + 1
+    assert fa_ops.counts["flash_attention"] == before["flash_attention"] + 1
+    assert fa_ops.counts[which] == before[which] + 1
     want = fa_ref.flash_attention(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def test_flash_kernel_reads_strided_views(card, no_tf32):
-    """The model's (B, S, H, D) activations, viewed as (B, H, S, D)."""
+@pytest.mark.parametrize("dtype,s,d", [(torch.float32, 70, 32),
+                                       (torch.bfloat16, 300, 128)],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_reads_strided_views(card, no_tf32, dtype, s, d):
+    """The model's (B, S, H, D) activations, viewed as (B, H, S, D), on
+    each route (the tensor-core kernel reads them through TMA maps)."""
     rng = np.random.default_rng(9)
-    x = torch.from_numpy(rng.standard_normal((2, 70, 4, 32)).astype(
-        np.float32)).cuda()
-    kv = torch.from_numpy(rng.standard_normal((2, 70, 2, 32)).astype(
-        np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((2, s, 4, d)).astype(
+        np.float32)).to("cuda", dtype)
+    kv = torch.from_numpy(rng.standard_normal((2, s, 2, d)).astype(
+        np.float32)).to("cuda", dtype)
     views = (x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2))
     got = fa_ops.flash_attention(*views)
     want = fa_ref.flash_attention(*(t.contiguous() for t in views))
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_tensor_core_grid_takes_many_heads(card):
+    """B * Hq = 65,664, past a grid's y limit of 65,535, with two q tiles
+    a head: the tensor-core kernel's 1-D grid holds it."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", torch.bfloat16)
+               for s in ((513, 128, 129, 64), (513, 8, 129, 64),
+                         (513, 8, 129, 64)))
+    before = fa_ops.counts["tensor_core"]
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["tensor_core"] == before + 1
+    want = fa_ref.flash_attention(q, k, v)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sm_scale", [0.3, -0.2, 0.0])
+def test_tensor_core_kernel_takes_any_scale(card, sm_scale):
+    """The kernel folds a positive scale into its exp2; the wrapper hands
+    it the same scores for a negative or zero one."""
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", torch.bfloat16)
+               for s in ((1, 4, 200, 128), (1, 2, 200, 128), (1, 2, 200, 128)))
+    got = fa_ops.flash_attention(q, k, v, sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    want = fa_ref.flash_attention(q, k, v, sm_scale=sm_scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_tensor_core_route_rejects_a_misaligned_base(card):
+    """A TMA map needs a 16-byte-aligned base: a view one element into a
+    buffer is refused before any launch."""
+    q = torch.zeros(1 + 2 * 128 * 64, dtype=torch.bfloat16,
+                    device="cuda")[1:].view(1, 2, 128, 64)
+    k = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device="cuda")
+    before = dict(fa_ops.counts)
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention(q, k, k)
+    assert fa_ops.counts == before
 
 
 def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
@@ -157,9 +213,35 @@ def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
         0, cfg.vocab_size, (2, 24)).astype(np.int32)
     on_cpu = ServingEngine(cfg, model, ServeConfig(max_len=32),
                            device="cpu").generate(prompts, 8)
-    before = fa_ops.counts["flash_attention"], dict(fa_ref.counts)
+    before = dict(fa_ops.counts), dict(fa_ref.counts)
     on_card = ServingEngine(cfg, model.cuda(), ServeConfig(max_len=32),
                             device="cuda").generate(prompts, 8)
     np.testing.assert_array_equal(on_card, on_cpu)
-    assert fa_ops.counts["flash_attention"] == before[0] + cfg.n_layers
+    assert fa_ops.counts["flash_attention"] == (
+        before[0]["flash_attention"] + cfg.n_layers)
+    assert fa_ops.counts["cuda_core"] == before[0]["cuda_core"] + cfg.n_layers
+    assert fa_ref.counts == before[1]
+
+
+def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
+    """Reduced codeqwen in bf16 at head_dim 128: every prefill layer takes
+    the tensor-core route, none the CUDA-core one or the plain version."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = configs.reduced(configs.get_config("codeqwen1.5-7b"),
+                          attention_impl="pallas", head_dim=128,
+                          dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 200)).astype(np.int32)
+    before = dict(fa_ops.counts), dict(fa_ref.counts)
+    out = ServingEngine(cfg, model, ServeConfig(max_len=208),
+                        device="cuda").generate(prompts, 8)
+    assert out.shape == (2, 8)
+    assert {r: fa_ops.counts[r] - before[0][r] for r in fa_ops.counts} == {
+        "flash_attention": cfg.n_layers, "tensor_core": cfg.n_layers,
+        "cuda_core": 0}
     assert fa_ref.counts == before[1]

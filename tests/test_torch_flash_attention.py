@@ -131,6 +131,73 @@ def test_empty_kv_gives_zeros():
     assert out.shape == q.shape and not out.any()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_route(dtype, head_dim):
+    """bf16 at the dense and GQA configs' head dims (64, 128) takes the
+    tensor cores; f32 stays on the CUDA cores, which keep it f32."""
+    want = ("tensor_core" if dtype == "bfloat16" and head_dim in (64, 128)
+            else "cuda_core")
+    assert ops.route(getattr(torch, dtype), head_dim) == want
+    assert want in ops.ROUTES
+
+
+def test_cpu_path_launches_no_kernel():
+    """On CPU tensors every route's count stays 0: the plain version runs."""
+    rng = np.random.default_rng(7)
+    before = dict(ops.counts), ref.counts["flash_attention"]
+    for dtype, d in ((torch.bfloat16, 128), (torch.bfloat16, 64),
+                     (torch.bfloat16, 32), (torch.float32, 128)):
+        q, k, v = (torch.from_numpy(a).to(dtype)
+                   for a in qkv(rng, 1, 4, 2, 40, 40, d))
+        ops.flash_attention(q, k, v)
+    assert ops.counts == before[0]
+    assert ref.counts["flash_attention"] == before[1] + 4
+
+
+def _offset_view(shape, dtype, offset=1):
+    """A (B, H, L, D) view that starts ``offset`` elements into a buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("case", ["base_misaligned", "position_stride",
+                                  "kv_base_misaligned", "zero_stride"])
+def test_tensor_core_route_rejects_unaligned_inputs(case):
+    """The tensor-core kernel reads through TMA maps: 16-byte-aligned bases
+    and strides.  The wrapper refuses anything else on any device, before
+    it builds or launches a kernel."""
+    bf16 = torch.bfloat16
+    q = torch.zeros((1, 4, 8, 64), dtype=bf16)
+    k = v = torch.zeros((1, 2, 8, 64), dtype=bf16)
+    if case == "base_misaligned":
+        q = _offset_view((1, 4, 8, 64), bf16)
+    elif case == "position_stride":      # rows 68 elements = 136 B apart
+        q = torch.zeros((1, 4, 8, 68), dtype=bf16)[..., :64]
+    elif case == "kv_base_misaligned":
+        v = _offset_view((1, 2, 8, 64), bf16, offset=4)
+    elif case == "zero_stride":
+        k = torch.zeros((1, 1, 8, 64), dtype=bf16).expand(1, 2, 8, 64)
+    before = dict(ops.counts), dict(ref.counts)
+    with pytest.raises(ValueError, match="aligned|multiples"):
+        ops.flash_attention(q, k, v)
+    assert (ops.counts, ref.counts) == before
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 32)])
+def test_cuda_core_route_takes_unaligned_inputs(dtype, d):
+    """The CUDA-core kernel reads elementwise: an offset view goes in and
+    gives what a contiguous copy gives."""
+    dtype = getattr(torch, dtype)
+    q = _offset_view((1, 4, 8, d), dtype)
+    q.copy_(torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 4, 8, d)).astype(np.float32)).to(dtype))
+    k = torch.ones((1, 2, 8, d), dtype=dtype)
+    torch.testing.assert_close(ops.flash_attention(q, k, k),
+                               ops.flash_attention(q.contiguous(), k, k),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("case,exc", [
     ("float16", TypeError),
     ("mixed_dtypes", TypeError),
@@ -163,3 +230,22 @@ def test_wrapper_rejects(case, exc):
         k = v = torch.zeros((2, 2, 8, 32))
     with pytest.raises(exc):
         ops.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("which,b,hq,lq,fits", [
+    # a 1-D grid: B * Hq past the 65,535 of a grid's y dimension fits
+    ("tensor_core", 2048, 32, 2048, True),
+    ("tensor_core", 1, 1, 128 * (2 ** 31 - 1), True),
+    ("tensor_core", 2 ** 16, 2 ** 8, 128 * 2 ** 7, False),
+    ("cuda_core", 2048, 32, 64 * 65_535, True),
+    ("cuda_core", 1, 1, 64 * 65_535 + 1, False),
+    ("cuda_core", 2 ** 31, 1, 64, False),
+])
+def test_grid_limits(which, b, hq, lq, fits):
+    """Each route's grid holds these calls, or the wrapper raises before it
+    launches."""
+    if fits:
+        ops._check_grid(which, b, hq, lq)
+    else:
+        with pytest.raises(ValueError, match="grid"):
+            ops._check_grid(which, b, hq, lq)
