@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero and none is caught:
    instructions in the tensor-core flash kernel's SASS, by
    ``cuobjdump -sass``, which must be above 0.
 2. Kernel parity: both support-join kernels against their plain PyTorch
-   versions on edge-case grids, requiring exact equality; both
+   versions on edge-case grids, requiring exact equality (the frontier
+   kernel also on the sparse grid of ``frontier_cases``: 0, 1, 10 and 100%
+   of (prefix, session) pairs nonzero, one prefix in every session among
+   empty ones, only the last of W > 1 words set, bit 31 only); both
    flash-attention kernels (the tensor-core route, bf16 at head_dim 64
    and 128, and the CUDA-core route, f32 and small bf16 head_dims)
    against their plain version on the grids of ``tests/test_kernels.py``
@@ -27,7 +30,9 @@ Phases, in order; any failure exits non-zero and none is caught:
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
    kernel and never a plain version, and stage 2 must beat the baseline
    client with prefetches.  Both kernels are then checked and timed at
-   the shapes this mine gave them.
+   the shapes this mine gave them, the frontier kernel also on random
+   words at the same shape (every pair nonzero), with its device time and
+   device operations per call from ``torch.profiler``.
 4. Spill path: the same backlog mined with ``frontier_budget=1`` must
    launch the s-step kernel and give the same patterns, in order.
 5. Card against CPU: the same client on ``device="cpu"`` (plain versions)
@@ -197,9 +202,10 @@ def time_ms(torch, fn: Callable[[], object], reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def profiled(torch, fn: Callable[[], object]) -> None:
+def profiled(torch, fn: Callable[[], object]) -> dict:
     """Run ``fn`` under ``torch.profiler``; print the device's busy time by
-    kernel and its share of the wall time."""
+    kernel and its share of the wall time, and return the busy time by
+    kernel name (us, launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,6 +226,32 @@ def profiled(torch, fn: Callable[[], object]) -> None:
           f"{wall_us / 1e3:.3f} ms wall (busy share {busy_us / wall_us:.4f})")
     for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
+    return by_kernel
+
+
+def device_work(torch, fn: Callable[[], object], reps: int = 10) -> dict:
+    """Under ``torch.profiler``, over ``reps`` calls of ``fn``: the device
+    operations (kernels, memsets, copies) of one call and the device time
+    of one call, in all and by operation name (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / reps / 1e3)
+            n_ops += 1
+    return {"ops": n_ops / reps, "ms": sum(by_name.values()),
+            "by_name": by_name}
 
 
 def random_words(torch, rng, shape) -> "torch.Tensor":
@@ -247,12 +279,15 @@ class Parity:
             raise AssertionError(f"{name} {what} differs from the plain "
                                  f"version (max abs err {err})")
 
-    def frontier(self, slots, cand) -> None:
-        got = self.ops.frontier_join_support(slots, cand)
-        self.torch.cuda.synchronize()
-        self._diff("frontier_join_support", got,
-                   self.ref.frontier_join_support(slots, cand),
-                   f"at {tuple(slots.shape)} x {tuple(cand.shape)}")
+    def frontier(self, slots, cand, what: str = "") -> None:
+        """As the miner calls it (with the walk's session-major copy of
+        ``cand``) and without that copy (the wrapper makes its own)."""
+        want = self.ref.frontier_join_support(slots, cand)
+        what = f"{what} at {tuple(slots.shape)} x {tuple(cand.shape)}"
+        for cand_t in (self.ops.session_major(cand), None):
+            got = self.ops.frontier_join_support(slots, cand, cand_t)
+            self.torch.cuda.synchronize()
+            self._diff("frontier_join_support", got, want, what)
         self.cases["frontier_join_support"] += 1
 
     def sstep(self, slots, cand) -> None:
@@ -266,13 +301,48 @@ class Parity:
 
 
 #: (K, S, W) and (P, K, S, W): the grids of tests/test_kernels.py, then
-#: ragged 32-tiles, split sessions and sessions wider than one staged chunk
+#: ragged 8-prefix tiles, several 256-session ranges and W up to 130
 SSTEP_GRID = [(1, 7, 1), (5, 100, 3), (8, 512, 1), (9, 513, 2),
               (32, 1000, 4), (3, 1, 1), (70, 5000, 1), (4, 300, 70)]
 FRONTIER_GRID = [(1, 1, 7, 1), (5, 9, 100, 2), (8, 8, 128, 1),
                  (9, 17, 130, 3), (16, 32, 512, 1), (3, 2, 1, 1),
                  (33, 65, 300, 2), (3, 5, 20_000, 1), (4, 33, 50, 70),
                  (40, 40, 3000, 130)]
+
+
+#: (P, K, S, W, density): the share of (prefix, session) pairs with a
+#: nonzero slot word, from none through the miner's ~1% to every pair; the
+#: frontier kernel's edges: K past 256, 512 and 1,024 candidates (1, 2 and
+#: 4 a thread, then two chunks), S within one 256-session range and past
+#: it, ragged 8-prefix tiles, and W > 1
+FRONTIER_DENSITY_GRID = [(20, 300, 700, 1, d) for d in (0.0, 0.01, 0.1, 1.0)] \
+    + [(9, 1100, 300, 1, 0.1), (5, 40, 200, 1, 0.1), (12, 70, 513, 3, 0.01),
+       (12, 70, 513, 3, 1.0)]
+
+
+def frontier_cases(rng) -> list:
+    """The sparse grid: (name, slots, cand), uint32 numpy words.  The
+    candidates are nonzero in 20% of their sessions."""
+    def words(shape, density):
+        w = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+        return w * (rng.random(shape[:2]) < density)[..., None]
+
+    cases = [(f"{d:.0%} of pairs nonzero, P={p} K={k} S={s} W={w}",
+              words((p, s, w), d), words((k, s, w), 0.2))
+             for p, k, s, w, d in FRONTIER_DENSITY_GRID]
+    slots = np.zeros((17, 600, 1), np.uint32)
+    slots[9] = words((1, 600, 1), 1.0) | 1
+    cases.append(("one prefix in every session among empty ones", slots,
+                   words((700, 600, 1), 0.2)))
+    slots = words((6, 400, 4), 0.5)
+    slots[..., :-1] = 0
+    cases.append(("only the last of 4 words set", slots,
+                  words((50, 400, 4), 0.5)))
+    bit31 = np.uint32(1 << 31)
+    cases.append(("bit 31 only",
+                  (rng.random((11, 300, 2)) < 0.3).astype(np.uint32) * bit31,
+                  (rng.random((33, 300, 2)) < 0.5).astype(np.uint32) * bit31))
+    return cases
 
 
 def edge_parity(torch, parity: Parity) -> None:
@@ -283,6 +353,9 @@ def edge_parity(torch, parity: Parity) -> None:
     for p, k, s, w in FRONTIER_GRID:
         parity.frontier(random_words(torch, rng, (p, s, w)),
                         random_words(torch, rng, (k, s, w)))
+    for name, slots, cand in frontier_cases(np.random.default_rng(3)):
+        parity.frontier(*(torch.from_numpy(x.view(np.int32)).to(DEVICE)
+                          for x in (slots, cand)), name)
     # sparse words: a candidate bit the slots lack adds no support, and
     # empty P or K returns zeros without a launch
     slots = torch.zeros((2, 64, 2), dtype=torch.int32, device=DEVICE)
@@ -811,7 +884,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"direct mine of the backlog (bitmaps built anew), warm: "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall [{card}]")
-    profiled(torch, direct_mine)
+    by_kernel = profiled(torch, direct_mine)
+    frontier = [v for name, v in by_kernel.items()
+                if "frontier_join_kernel" in name]
+    print(f"  frontier kernels in the warm mine: "
+          f"{sum(t for t, _ in frontier) / 1e3:.3f} ms over "
+          f"{sum(n for _, n in frontier)} launches [{card}]")
     shadow = core.PatternMetastore(cfg.metastore_capacity,
                                    cfg.mining.max_len)
     shadow.populate([p for p in patterns if p.support >= 2])
@@ -832,27 +910,49 @@ def main(argv=None) -> int:
     # level at the minsup used, and the s-step join of its best root
     rows = np.nonzero(vb.freq_support >= msc)[0]
     cand = vb.bits[torch.as_tensor(rows, device=DEVICE)]
+    cand_t = ops.session_major(cand)
     slots = vb.extension_slots(cand, cfg.mining.maxgap).contiguous()
     root = int(np.argmax(vb.freq_support[rows]))
     root_slots = vb.extension_slots(cand[root], cfg.mining.maxgap).contiguous()
-    parity.frontier(slots, cand)
+    parity.frontier(slots, cand, "first level")
     parity.sstep(root_slots, cand)
     p_, k_, s_, w_ = (*slots.shape[:1], *cand.shape)
+    # the frontier kernel at the same shape on random words, where every
+    # (prefix, session) pair is nonzero and nothing can be skipped
+    frng = np.random.default_rng(2)
+    full_slots = random_words(torch, frng, tuple(slots.shape))
+    full_cand = random_words(torch, frng, tuple(cand.shape))
+    full_cand_t = ops.session_major(full_cand)
+    parity.frontier(full_slots, full_cand, "every pair nonzero")
     # bounds: each input read once, each output written once; the frontier
-    # join needs one AND per (nonzero slot word, candidate) of this data,
-    # though the dense kernel does all P*K*S*W (its bound: dense_bound_ms)
+    # join needs one AND per (nonzero slot word, candidate) of this data
+    # (dense_bound_ms: the operations of all P*K*S*W)
     nnz = int((slots != 0).sum())
     f_bound, f_by = bound_ms((p_ + k_) * s_ * w_ * 4 + p_ * k_ * 4, nnz * k_)
     f_dense, _ = bound_ms(0, p_ * k_ * s_ * w_)
     s_bound, s_by = bound_ms(2 * k_ * s_ * w_ * 4 + s_ * w_ * 4 + k_ * 4,
                              k_ * s_ * w_)
+    work = device_work(torch, lambda: ops.frontier_join_support(
+        slots, cand, cand_t))
+    full_work = device_work(torch, lambda: ops.frontier_join_support(
+        full_slots, full_cand, full_cand_t))
+    kernel_ms = {name: sum(ms for op, ms in w["by_name"].items()
+                           if "frontier_join_kernel" in op)
+                 for name, w in (("sparse", work), ("full", full_work))}
     timing = {
         "frontier_join_support": dict(
-            ms=time_ms(torch, lambda: ops.frontier_join_support(slots, cand)),
+            ms=time_ms(torch, lambda: ops.frontier_join_support(
+                slots, cand, cand_t)),
+            ms_full_density=time_ms(torch, lambda: ops.frontier_join_support(
+                full_slots, full_cand, full_cand_t)),
             plain_ms=time_ms(torch, lambda: ref.frontier_join_support(
                 slots, cand), reps=5),
+            session_major_ms=time_ms(torch, lambda: ops.session_major(cand)),
             bound_ms=f_bound, bound_by=f_by, dense_bound_ms=f_dense,
-            shape=[p_, k_, s_, w_], nonzero_slot_words=nnz),
+            device_ms=work["ms"], kernel_device_ms=kernel_ms["sparse"],
+            kernel_device_ms_full_density=kernel_ms["full"],
+            launches_per_call=work["ops"], shape=[p_, k_, s_, w_],
+            nonzero_slot_words=nnz),
         "sstep_join_support": dict(
             ms=time_ms(torch, lambda: ops.sstep_join_support(root_slots, cand)),
             plain_ms=time_ms(torch, lambda: ref.sstep_join_support(
@@ -863,6 +963,16 @@ def main(argv=None) -> int:
         print(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}) [{card}]")
+    t = timing["frontier_join_support"]
+    print(f"frontier_join_support: {t['launches_per_call']:.1f} device "
+          f"operations a call ({', '.join(sorted(work['by_name']))}); "
+          f"device time {t['device_ms']:.4f} ms a call, of it the kernel "
+          f"{t['kernel_device_ms']:.4f} ms ({f_bound / t['kernel_device_ms']:.4f} "
+          f"of the bound); {nnz} nonzero slot words of {p_ * s_ * w_}; on "
+          f"random words (every pair nonzero): {t['ms_full_density']:.4f} ms "
+          f"one launch, kernel {t['kernel_device_ms_full_density']:.4f} ms "
+          f"on the device; the walk's session-major copy of cand "
+          f"{t['session_major_ms']:.4f} ms, once a walk [{card}]")
 
     t_virtual = client.clock.now
     served = serve_stage2(core, client, stage2)
@@ -962,9 +1072,11 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": t["shape"],
-            **({"dense_bound_ms": t["dense_bound_ms"],
-                "nonzero_slot_words": t["nonzero_slot_words"]}
-               if "dense_bound_ms" in t else {}),
+            **({key: t[key] for key in (
+                "ms_full_density", "launches_per_call", "device_ms",
+                "kernel_device_ms", "kernel_device_ms_full_density",
+                "session_major_ms", "dense_bound_ms", "nonzero_slot_words")}
+               if name == "frontier_join_support" else {}),
         })
     # the tensor-core kernel is the serve path's; the CUDA-core one runs
     # the f32 check of phase 7

@@ -10,9 +10,11 @@ giving the same patterns in the same order.  What moved to the device:
   ``freq_support`` and ``_row_of`` stay small numpy arrays on the host,
   equal to the reference's.
 * The level-synchronous frontier walk keeps the frontier ``(P, S, W)``,
-  the candidates ``(K, S, W)``, the extension slots and the joined
-  surviving pairs on the device.  Only the ``(P, K)`` support matrix
-  comes back to the host each level, for the pattern bookkeeping.
+  the candidates ``(K, S, W)`` with their session-major copy
+  ``(S, K, W)`` (made once per walk, for the frontier kernel), the
+  extension slots and the joined surviving pairs on the device.  Only the
+  ``(P, K)`` support matrix comes back to the host each level, for the
+  pattern bookkeeping.
 * Support joins go through :mod:`repro_torch.kernels.bitmap_support`:
   the frontier join on the main path, the s-step join on the DFS spill
   path.  On a CUDA device they are hand-written kernels; on the CPU,
@@ -227,21 +229,23 @@ def bitmaps_from_numpy(bits: np.ndarray, freq_items: np.ndarray,
 def _frontier_support(
     slots: torch.Tensor,
     cand: torch.Tensor,
+    cand_t: Optional[torch.Tensor],
     allowed: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Fused support count for a whole frontier: (P,S,W) × (K,S,W) -> (P,K)
     int64 on the host.
 
-    The join is dense: every (prefix, item, session) is joined by the
-    ``frontier_join_support`` kernel (its plain version on the CPU).
-    ``allowed`` is an optional (P,K) bool mask of candidate extensions per
-    prefix (apriori narrowing for maxgap=None); disallowed pairs report
-    support 0, as in the reference.
+    The ``frontier_join_support`` kernel joins only the sessions where a
+    prefix's slot words are nonzero, against ``cand_t``, the walk's
+    session-major copy of ``cand`` (its plain version on the CPU joins
+    densely).  ``allowed`` is an optional (P,K) bool mask of candidate
+    extensions per prefix (apriori narrowing for maxgap=None); disallowed
+    pairs report support 0, as in the reference.
     """
     p_prefixes, k_items = slots.shape[0], cand.shape[0]
     if p_prefixes == 0 or k_items == 0:
         return np.zeros((p_prefixes, k_items), np.int64)
-    sup = _ops.frontier_join_support(slots.contiguous(), cand)
+    sup = _ops.frontier_join_support(slots.contiguous(), cand, cand_t)
     sup = sup.cpu().numpy().astype(np.int64)
     if allowed is not None:
         sup[~allowed] = 0
@@ -327,6 +331,7 @@ def _frontier_mine(
         return _dfs_mine(vb, params, msc, rows, maximal_only)
 
     cand = vb.bits[torch.as_tensor(rows, device=vb.device)]  # (K, S, W)
+    cand_t = _ops.session_major(cand)         # (S, K, W), once per walk
     cand_items = vb.freq_items[rows]
     patterns: list[tuple] = [(int(it),) for it in cand_items]
     fbits = cand                              # depth-1 frontier = item bitmaps
@@ -352,7 +357,7 @@ def _frontier_mine(
             break
         # extension slots for the whole frontier, once per level
         slots = vb.extension_slots(fbits, params.maxgap)
-        sup = _frontier_support(slots, cand, allowed=allowed)  # (P, K) host
+        sup = _frontier_support(slots, cand, cand_t, allowed)  # (P, K) host
         surv = sup >= msc
         has_ext = surv.any(axis=1)                         # maximality mask
         if depth >= params.min_len:

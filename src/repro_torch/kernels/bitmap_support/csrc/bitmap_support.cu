@@ -13,22 +13,32 @@
 //
 // frontier_join_support: support[p,k] = #sessions s with
 //   OR_w (slots[p,s,w] & cand[k,s,w]) != 0.
-//   Bound: a pure integer AND/OR/count, P*K*S*W word operations on the
-//   CUDA cores (no tensor-core form exists) against (P+K)*S*W*4 bytes of
-//   input.  At the frontiers the miner builds, P and K are in the
-//   hundreds (P = K = 455: ~57 word operations per byte, where the card
-//   has ~5 INT32 operations per byte of bandwidth), so operations bound
-//   it, not bytes.  Design: each block owns a 32x32 (prefix, item) tile and
-//   stages a 64-word slice of its 32 slot rows and 32 candidate rows in
-//   shared memory, so every word loaded from device memory is used 32
-//   times; each of the 256 threads keeps the counts of 4 pairs in
-//   registers for the whole session loop and the block writes its tile
-//   once.  A row is padded to 65 words so the 32 candidate rows a warp
-//   reads at one column fall in 32 different banks.  When the (P,K) tiles
-//   are too few to fill the 132 SMs (deep lattice levels hold few
-//   prefixes), the session range is split across blocks, which add their
-//   partial counts with an int32 atomicAdd (exact for integers).  Ragged
-//   edges are masked here: the wrapper never pads.
+//   Bound: bytes.  Every slot word must be read once, P*S*W words, to
+//   find where a prefix occurs; past that, only a (prefix, session) pair
+//   with a nonzero slot word can add support, and it needs that session's
+//   K candidate words.  At the miner's levels about 1% of the pairs are
+//   nonzero (45,508 of 4.67 M words at the SEQB floor), so a dense
+//   P*K*S*W join ANDs zero 99% of the time.
+//   Design: the join runs session-major and skips the zero pairs.  The
+//   candidates come as cand_t (S, K, W), the session-major copy the miner
+//   makes once per walk, so one session's K*W candidate words are
+//   contiguous.  A block owns a tile of kTileRows prefixes, a range of
+//   kJoinThreads sessions and a chunk of at most kJoinThreads*KPT
+//   candidates.  Each thread scans one session's slot words for the tile;
+//   the sessions where some prefix of the tile has a nonzero word go to a
+//   list in shared memory, in session order (a warp ballot and a prefix
+//   sum over the warps).  Then the threads walk the list, one candidate
+//   each (KPT of them): a listed session's candidate words are one
+//   coalesced read of cand_t, which fits the 50 MB L2 (18.7 MB at the
+//   SEQB floor), kUnroll sessions in flight, and each word is
+//   ANDed against the tile's kTileRows slot words there, so a word read
+//   once serves kTileRows prefixes.  Counts stay in registers.  A block
+//   adds its nonzero counts to the output with an int32 atomicAdd (exact
+//   for integers) once the launcher has zeroed it, or stores them when it
+//   covers every session.  At full density every session is listed and
+//   the work is the dense join's, with each candidate word read once per
+//   tile of prefixes.  Words are uint32 throughout: bit 31 is an ordinary
+//   bit, and nothing is shifted.
 //
 // sstep_join_support: joined[k] = slots & cand[k] and support[k] =
 //   #sessions with a nonzero word of joined[k].
@@ -42,95 +52,173 @@
 
 namespace {
 
-constexpr int kTileP = 32;          // prefixes per block
-constexpr int kTileK = 32;          // candidate items per block
-constexpr int kChunk = 64;          // words of a row staged per step
-constexpr int kRow = kChunk + 1;    // padded shared-memory row
 constexpr int kThreads = 256;
-constexpr int kPairs = kTileP * kTileK / kThreads;   // 4 per thread
+constexpr int kJoinThreads = kThreads;       // and sessions per block
+constexpr int kWarps = kJoinThreads / 32;
+constexpr int kTileRows = 8;                 // prefixes per block
+constexpr int kUnroll = 8;                   // listed sessions in flight
 
-__global__ void __launch_bounds__(kThreads)
+// KPT candidates per thread; kW = 1 for one-word sessions (the list then
+// keeps the tile's slot words beside each session), 0 for W given at run
+// time.
+template <int KPT, int kW>
+__global__ void __launch_bounds__(kJoinThreads)
 frontier_join_kernel(const uint32_t* __restrict__ slots,
-                     const uint32_t* __restrict__ cand,
+                     const uint32_t* __restrict__ cand_t,
                      int32_t* __restrict__ support,
-                     int P, int K, int S, int W, int sessions_per_split) {
-  __shared__ uint32_t s_slots[kTileP * kRow];
-  __shared__ uint32_t s_cand[kTileK * kRow];
+                     int P, int K, int S, int w_run, int n_ranges,
+                     int n_tiles) {
+  static_assert(kTileRows == 8, "a session's tile words are two uint4");
+  __shared__ int s_list[kJoinThreads];
+  __shared__ __align__(16)
+      uint32_t s_words[kW == 1 ? kJoinThreads * kTileRows : 4];
+  __shared__ int s_warp[kWarps];
 
-  const int k0 = blockIdx.x * kTileK;
-  const int p0 = blockIdx.y * kTileP;
-  const int s_lo = blockIdx.z * sessions_per_split;
-  const int s_hi = min(S, s_lo + sessions_per_split);
+  const int W = kW ? kW : w_run;
   const int tid = threadIdx.x;
-  const int tk = tid % kTileK;        // a warp spans 32 candidates
-  const int tp = tid / kTileK;        // and one prefix row per pair
+  const int lane = tid % 32, warp = tid / 32;
+  const int range = blockIdx.x % n_ranges;
+  const int tile = (blockIdx.x / n_ranges) % n_tiles;
+  const int k_chunk = blockIdx.x / n_ranges / n_tiles;
+  const int p0 = tile * kTileRows;
+  const int rows = min(kTileRows, P - p0);
   const size_t row_words = (size_t)S * W;
+  const uint32_t* tile_slots = slots + (size_t)p0 * row_words;
+  const int k_first = k_chunk * kJoinThreads * KPT + tid;
 
-  // whole sessions fit in a chunk: stage several per step; otherwise one
-  // session is staged in word chunks and its any-bit is carried across
-  const bool whole = W <= kChunk;
-  const int sess_per_step = whole ? kChunk / W : 1;
-  const int steps_per_sess = whole ? 1 : (W + kChunk - 1) / kChunk;
-
-  int count[kPairs];
-  uint32_t any[kPairs];
+  // -- scan: is this thread's session nonzero in any prefix of the tile?
+  const int s = range * kJoinThreads + tid;
+  uint32_t v[kTileRows];
+  uint32_t any = 0u;
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
-    count[i] = 0;
-    any[i] = 0u;
+  for (int i = 0; i < kTileRows; ++i) v[i] = 0u;
+  if (s < S) {
+    if constexpr (kW == 1) {
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i) {
+        if (i < rows) v[i] = tile_slots[i * row_words + s];
+        any |= v[i];
+      }
+    } else {
+      for (int i = 0; i < rows; ++i)
+        for (int w = 0; w < W; ++w)
+          any |= tile_slots[i * row_words + (size_t)s * W + w];
+    }
   }
+  const bool nz = any != 0u;
+  const unsigned ballot = __ballot_sync(0xffffffffu, nz);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  int at = __popc(ballot & ((1u << lane) - 1u)), n = 0;
+#pragma unroll
+  for (int u = 0; u < kWarps; ++u) {
+    const int c = s_warp[u];
+    at += u < warp ? c : 0;
+    n += c;
+  }
+  if (nz) {
+    s_list[at] = s;
+    if constexpr (kW == 1) {
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i) s_words[at * kTileRows + i] = v[i];
+    }
+  }
+  if (n == 0 && n_ranges > 1) return;   // nothing to add (block-uniform)
+  __syncthreads();
 
-  for (int s0 = s_lo; s0 < s_hi; s0 += sess_per_step) {
-    const int ns = min(sess_per_step, s_hi - s0);
-    for (int step = 0; step < steps_per_sess; ++step) {
-      const int w0 = step * kChunk;
-      const int span = whole ? ns * W : min(kChunk, W - w0);  // words/row
-      const size_t base = (size_t)s0 * W + w0;
-      __syncthreads();   // the previous slice has been consumed
-      for (int idx = tid; idx < kTileP * kChunk; idx += kThreads) {
-        const int r = idx / kChunk, c = idx % kChunk;
-        uint32_t v = 0u;
-        if (p0 + r < P && c < span) v = slots[(p0 + r) * row_words + base + c];
-        s_slots[r * kRow + c] = v;
-      }
-      for (int idx = tid; idx < kTileK * kChunk; idx += kThreads) {
-        const int r = idx / kChunk, c = idx % kChunk;
-        uint32_t v = 0u;
-        if (k0 + r < K && c < span) v = cand[(k0 + r) * row_words + base + c];
-        s_cand[r * kRow + c] = v;
-      }
-      __syncthreads();
-      const int wps = whole ? W : span;   // staged words of one session
-      const bool closes = whole || step == steps_per_sess - 1;
-      for (int j = 0; j < ns; ++j) {
-        for (int w = j * wps; w < (j + 1) * wps; ++w) {
-          const uint32_t c = s_cand[tk * kRow + w];   // reused by 4 pairs
+  // -- join: every listed session against this thread's candidates
+  int count[kTileRows][KPT];
 #pragma unroll
-          for (int i = 0; i < kPairs; ++i)
-            any[i] |= s_slots[(tp + i * (kThreads / kTileK)) * kRow + w] & c;
-        }
-        if (closes) {
+  for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
-          for (int i = 0; i < kPairs; ++i) {
-            count[i] += any[i] != 0u;
-            any[i] = 0u;
-          }
+    for (int j = 0; j < KPT; ++j) count[i][j] = 0;
+  if constexpr (kW == 1) {
+    for (int e = 0; e < n; e += kUnroll) {
+      uint32_t c[kUnroll][KPT];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool live = e + u < n;
+        const uint32_t* row = cand_t + (size_t)(live ? s_list[e + u] : 0) * K;
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          const int k = k_first + j * kJoinThreads;
+          c[u][j] = live && k < K ? __ldg(row + k) : 0u;
         }
       }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (e + u >= n) break;
+        // a zero slot word adds nothing, so no row is branched around
+        const uint4* tw = reinterpret_cast<const uint4*>(
+            s_words + (e + u) * kTileRows);
+        const uint4 lo = tw[0], hi = tw[1];
+        const uint32_t sw[kTileRows] = {lo.x, lo.y, lo.z, lo.w,
+                                        hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) count[i][j] += (sw[i] & c[u][j]) != 0u;
+      }
+    }
+  } else {
+    for (int e = 0; e < n; ++e) {
+      const int se = s_list[e];
+      const uint32_t* row = cand_t + (size_t)se * K * W;
+      uint32_t hit[kTileRows][KPT];
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) hit[i][j] = 0u;
+      for (int w = 0; w < W; ++w) {
+        uint32_t c[KPT];
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          const int k = k_first + j * kJoinThreads;
+          c[j] = k < K ? __ldg(row + (size_t)k * W + w) : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i) {
+          const uint32_t sw =
+              i < rows ? tile_slots[i * row_words + (size_t)se * W + w] : 0u;
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) hit[i][j] |= sw & c[j];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) count[i][j] += hit[i][j] != 0u;
     }
   }
 
-  const int k = k0 + tk;
-  if (k >= K) return;
 #pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
-    const int p = p0 + tp + i * (kThreads / kTileK);
-    if (p >= P) continue;
-    if (gridDim.z == 1) {
-      support[(size_t)p * K + k] = count[i];
-    } else if (count[i] != 0) {
-      atomicAdd(&support[(size_t)p * K + k], count[i]);
+  for (int i = 0; i < kTileRows; ++i) {
+    if (i >= rows) break;
+    int32_t* out = support + (size_t)(p0 + i) * K;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      const int k = k_first + j * kJoinThreads;
+      if (k >= K) continue;
+      if (n_ranges == 1) {
+        out[k] = count[i][j];
+      } else if (count[i][j] != 0) {
+        atomicAdd(out + k, count[i][j]);
+      }
     }
+  }
+}
+
+template <int KPT>
+void launch_frontier(const uint32_t* slots, const uint32_t* cand_t,
+                     int32_t* support, int P, int K, int S, int W,
+                     int n_ranges, int n_tiles, int blocks,
+                     cudaStream_t stream) {
+  if (W == 1) {
+    frontier_join_kernel<KPT, 1><<<blocks, kJoinThreads, 0, stream>>>(
+        slots, cand_t, support, P, K, S, W, n_ranges, n_tiles);
+  } else {
+    frontier_join_kernel<KPT, 0><<<blocks, kJoinThreads, 0, stream>>>(
+        slots, cand_t, support, P, K, S, W, n_ranges, n_tiles);
   }
 }
 
@@ -178,17 +266,38 @@ extern "C" {
 // Both launchers return the CUDA error of the launch (0 on success); the
 // kernels run asynchronously on `stream` of card `device`.
 
-// support must hold P*K int32; it must be zeroed when splits > 1.
-int frontier_join_support_launch(const uint32_t* slots, const uint32_t* cand,
+// cand_t is (S, K, W).  The grid is k_chunks * n_tiles * n_ranges blocks
+// (ranges fastest) with n_ranges = ceil(S / kJoinThreads), n_tiles =
+// ceil(P / kTileRows) and kpt * kJoinThreads * k_chunks >= K; kpt is 1, 2
+// or 4.  support holds P*K int32; when n_ranges > 1 it is zeroed here, on
+// the stream, before the kernel adds into it.
+int frontier_join_support_launch(const uint32_t* slots, const uint32_t* cand_t,
                                  int32_t* support, int P, int K, int S, int W,
-                                 int splits, int device, cudaStream_t stream) {
+                                 int n_ranges, int n_tiles, int k_chunks,
+                                 int kpt, int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int per_split = (S + splits - 1) / splits;
-  const dim3 grid((K + kTileK - 1) / kTileK, (P + kTileP - 1) / kTileP,
-                  splits);
-  frontier_join_kernel<<<grid, kThreads, 0, stream>>>(slots, cand, support,
-                                                      P, K, S, W, per_split);
+  const long long blocks = (long long)k_chunks * n_tiles * n_ranges;
+  if (blocks > 0x7fffffffLL ||
+      (long long)n_ranges * kJoinThreads < S ||
+      (long long)n_tiles * kTileRows < P ||
+      (long long)k_chunks * kpt * kJoinThreads < K ||
+      (kpt != 1 && kpt != 2 && kpt != 4))
+    return (int)cudaErrorInvalidConfiguration;
+  if (n_ranges > 1) {
+    const cudaError_t zero = cudaMemsetAsync(
+        support, 0, (size_t)P * K * sizeof(int32_t), stream);
+    if (zero != cudaSuccess) return (int)zero;
+  }
+  if (kpt == 1)
+    launch_frontier<1>(slots, cand_t, support, P, K, S, W, n_ranges, n_tiles,
+                       (int)blocks, stream);
+  else if (kpt == 2)
+    launch_frontier<2>(slots, cand_t, support, P, K, S, W, n_ranges, n_tiles,
+                       (int)blocks, stream);
+  else
+    launch_frontier<4>(slots, cand_t, support, P, K, S, W, n_ranges, n_tiles,
+                       (int)blocks, stream);
   return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,10 @@ Words are ``int32`` tensors holding the miner's ``uint32`` bitmaps.
   ``csrc/bitmap_support.cu`` (built at first use) or raises.  It never
   falls back.
 
+The frontier kernel joins only the (prefix, session) pairs with a nonzero
+slot word, against :func:`session_major` of the candidates; its grid is
+:func:`frontier_plan`.
+
 ``counts`` holds the kernel launches since the last reset: a wrapper adds
 one where it launches its kernel and nowhere else.
 """
@@ -15,8 +19,10 @@ one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -24,19 +30,21 @@ from .. import _build
 from .._launch import launch_args, on_cpu
 from . import ref
 
-__all__ = ["frontier_join_support", "sstep_join_support", "counts",
-           "load"]
+__all__ = ["frontier_join_support", "sstep_join_support", "session_major",
+           "frontier_plan", "FrontierPlan", "counts", "load"]
 
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "bitmap_support.cu",)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # slots, cand, support, P, K, S, W, splits, device, stream
-    "frontier_join_support_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # slots, cand_t, support, P, K, S, W, n_ranges, n_tiles, k_chunks,
+    # kpt, device, stream
+    "frontier_join_support_launch": [_P, _P, _P, *[_I] * 9, _P],
     # slots, cand, joined, support, K, S, W, device, stream
     "sstep_join_support_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
-_TILE = 32              # prefixes and items per block of the frontier kernel
-_MIN_SPLIT_SESSIONS = 512
+_TILE_ROWS = 8          # kTileRows: prefixes per block of the frontier kernel
+_JOIN_THREADS = 256     # kJoinThreads: its threads and sessions per block
+_KPT = (1, 2, 4)        # candidates a thread may hold
 _SSTEP_SESSIONS_PER_BLOCK = 1024   # kSessionsPerBlock of the s-step kernel
 _INT_MAX = 2 ** 31 - 1
 
@@ -58,19 +66,51 @@ def _check(name: str, t: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _splits(p_prefixes: int, k_items: int, n_sessions: int,
-            device: int) -> int:
-    """Session splits that bring the frontier grid to ~2 blocks per SM."""
-    tiles = math.ceil(p_prefixes / _TILE) * math.ceil(k_items / _TILE)
-    want = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(want / tiles),
-                      n_sessions // _MIN_SPLIT_SESSIONS))
+@dataclasses.dataclass(frozen=True)
+class FrontierPlan:
+    """The frontier kernel's grid: ``k_chunks * n_tiles * n_ranges``
+    blocks (ranges fastest), each owning a tile of ``_TILE_ROWS``
+    prefixes, a range of ``_JOIN_THREADS`` sessions and ``kpt *
+    _JOIN_THREADS`` candidates."""
+
+    n_ranges: int
+    n_tiles: int
+    k_chunks: int
+    kpt: int
+
+    @property
+    def blocks(self) -> int:
+        return self.k_chunks * self.n_tiles * self.n_ranges
 
 
-def frontier_join_support(slots: torch.Tensor,
-                          cand: torch.Tensor) -> torch.Tensor:
+def frontier_plan(p_prefixes: int, k_items: int,
+                  n_sessions: int) -> FrontierPlan:
+    """The grid that covers every (prefix, session, candidate) once."""
+    kpt = next((c for c in _KPT if k_items <= c * _JOIN_THREADS), _KPT[-1])
+    return FrontierPlan(
+        n_ranges=math.ceil(n_sessions / _JOIN_THREADS),
+        n_tiles=math.ceil(p_prefixes / _TILE_ROWS),
+        k_chunks=math.ceil(k_items / (kpt * _JOIN_THREADS)), kpt=kpt)
+
+
+def session_major(cand: torch.Tensor) -> Optional[torch.Tensor]:
+    """The (S, K, W) copy of ``cand`` that the frontier kernel reads, one
+    session's candidate words contiguous; ``None`` on the CPU, whose plain
+    version reads ``cand`` as it is.  ``cand`` is fixed for a whole
+    lattice walk, so the miner makes this copy once per walk."""
+    if on_cpu(cand):
+        return None
+    return cand.transpose(0, 1).contiguous()
+
+
+def frontier_join_support(slots: torch.Tensor, cand: torch.Tensor,
+                          cand_t: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """(P, S, W) × (K, S, W) int32 -> support (P, K) int32: the number of
-    sessions where ``slots[p] & cand[k]`` has a nonzero word."""
+    sessions where ``slots[p] & cand[k]`` has a nonzero word.
+
+    ``cand_t`` is :func:`session_major` of ``cand``, which the kernel
+    reads; without it the wrapper makes it (one more launch)."""
     _check("slots", slots, 3)
     _check("cand", cand, 3)
     p_prefixes, n_sessions, n_words = slots.shape
@@ -78,21 +118,29 @@ def frontier_join_support(slots: torch.Tensor,
     if cand.shape[1:] != slots.shape[1:]:
         raise ValueError(f"cand {tuple(cand.shape)} does not match "
                          f"slots {tuple(slots.shape)}")
-    if on_cpu(slots, cand):
+    if cand_t is not None:
+        _check("cand_t", cand_t, 3)
+        if cand_t.shape != (n_sessions, k_items, n_words):
+            raise ValueError(f"cand_t {tuple(cand_t.shape)} is not the "
+                             f"session-major copy of cand "
+                             f"{tuple(cand.shape)}")
+    if on_cpu(slots, cand, *(() if cand_t is None else (cand_t,))):
         return ref.frontier_join_support(slots, cand)
     if min(p_prefixes, k_items, n_sessions, n_words) == 0:
         return torch.zeros((p_prefixes, k_items), dtype=torch.int32,
                            device=slots.device)
     if max(p_prefixes, k_items, n_sessions * n_words) > _INT_MAX:
         raise ValueError("frontier too large for 32-bit indices")
+    if cand_t is None:
+        cand_t = session_major(cand)
     dev, stream = launch_args(slots)
-    splits = _splits(p_prefixes, k_items, n_sessions, dev)
-    alloc = torch.zeros if splits > 1 else torch.empty
-    support = alloc((p_prefixes, k_items), dtype=torch.int32,
-                    device=slots.device)
+    plan = frontier_plan(p_prefixes, k_items, n_sessions)
+    support = torch.empty((p_prefixes, k_items), dtype=torch.int32,
+                          device=slots.device)    # zeroed by the launcher
     err = load().frontier_join_support_launch(
-        slots.data_ptr(), cand.data_ptr(), support.data_ptr(),
-        p_prefixes, k_items, n_sessions, n_words, splits, dev, stream)
+        slots.data_ptr(), cand_t.data_ptr(), support.data_ptr(),
+        p_prefixes, k_items, n_sessions, n_words, plan.n_ranges,
+        plan.n_tiles, plan.k_chunks, plan.kpt, dev, stream)
     if err:
         raise RuntimeError(f"frontier_join_support launch failed: "
                            f"CUDA error {err}")

@@ -2,9 +2,11 @@
 
 On CPU tensors the port's wrappers run their plain PyTorch versions; they
 must equal the JAX kernels (interpret mode, as tests/test_kernels.py runs
-them) and the JAX package's oracles exactly, on the same grids.  The CUDA
-kernels themselves are held against these on a card, in
-tests/test_torch_cuda.py."""
+them) and the JAX package's oracles exactly, on the same grids, among
+them ``chip_smoke.frontier_cases``, the sparse grid that phase 2 of
+``chip_smoke.py`` and tests/test_torch_cuda.py hold the CUDA kernel to on
+a card.  The frontier kernel's grid (``ops.frontier_plan``) is checked
+here by laying its blocks out in numpy.  Every equality is exact."""
 
 import numpy as np
 import pytest
@@ -12,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+import chip_smoke  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.bitmap_support import ops as jax_ops  # noqa: E402
@@ -22,6 +25,10 @@ SSTEP_GRID = [(1, 7, 1), (5, 100, 3), (8, 512, 1), (9, 513, 2),
               (32, 1000, 4), (3, 1, 1)]
 FRONTIER_GRID = [(1, 1, 7, 1), (5, 9, 100, 2), (8, 8, 128, 1),
                  (9, 17, 130, 3), (16, 32, 512, 1), (3, 2, 1, 1)]
+#: (name, slots, cand) uint32: 0, 1, 10 and 100% of (prefix, session)
+#: pairs nonzero, one prefix in every session among empty ones, only the
+#: last of W > 1 words set, bit 31 only
+SPARSE = chip_smoke.frontier_cases(np.random.default_rng(3))
 
 
 def as_torch(words: np.ndarray) -> torch.Tensor:
@@ -128,3 +135,119 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
     with pytest.raises(err):
         ops.frontier_join_support(s, c)
 
+
+
+@pytest.mark.parametrize("case", range(len(SPARSE)),
+                         ids=[name for name, _, _ in SPARSE])
+def test_frontier_plain_matches_numpy_on_the_sparse_grid(case):
+    name, slots, cand = SPARSE[case]
+    got = ops.frontier_join_support(as_torch(slots), as_torch(cand))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), jax_ref.frontier_join_support(slots, cand))
+    assert got.numpy().any() != name.startswith("0%")
+
+
+def plan_blocks(plan: ops.FrontierPlan, p_prefixes, k_items, n_sessions):
+    """The kernel's blocks, decoded from the block index as the kernel
+    does: (prefix rows, sessions, candidates) of each."""
+    span = ops._JOIN_THREADS
+    for b in range(plan.blocks):
+        r = b % plan.n_ranges
+        tile = b // plan.n_ranges % plan.n_tiles
+        chunk = b // plan.n_ranges // plan.n_tiles
+        per_chunk = plan.kpt * ops._JOIN_THREADS
+        yield (np.arange(tile * ops._TILE_ROWS,
+                         min(p_prefixes, (tile + 1) * ops._TILE_ROWS)),
+               np.arange(r * span, min(n_sessions, (r + 1) * span)),
+               np.arange(chunk * per_chunk,
+                         min(k_items, (chunk + 1) * per_chunk)))
+
+
+@pytest.mark.parametrize("p_prefixes,k_items,n_sessions", [
+    (1, 1, 1), (8, 256, 256), (9, 257, 257), (20, 300, 700),
+    (17, 700, 600), (9, 1100, 300), (3, 5000, 40), (467, 467, 10_000)])
+def test_frontier_plan_covers_every_pair_once(p_prefixes, k_items,
+                                              n_sessions):
+    """Every (prefix, session, candidate) lies in exactly one block, and
+    no block holds more than 8 prefixes, 256 sessions or 256 * kpt
+    candidates, with kpt the least of 1, 2, 4 that holds K."""
+    plan = ops.frontier_plan(p_prefixes, k_items, n_sessions)
+    assert plan.kpt == min([c for c in (1, 2, 4) if k_items <= 256 * c]
+                           or [4])
+    cover = [np.zeros(n, np.int64) for n in (p_prefixes, n_sessions,
+                                             k_items)]
+    tiles = set()
+    for rows, sess, cands in plan_blocks(plan, p_prefixes, k_items,
+                                         n_sessions):
+        assert 0 < rows.size <= 8 and 0 < sess.size <= 256
+        assert 0 < cands.size <= 256 * plan.kpt
+        key = (rows[0], sess[0], cands[0])
+        assert key not in tiles
+        tiles.add(key)
+        for c, part in zip(cover, (rows, sess, cands)):
+            c[part] += 1
+    # the blocks are the product of three partitions, each covering its
+    # axis the same number of times: so each triple exactly once
+    per = plan.blocks
+    for c, n in zip(cover, (plan.n_tiles, plan.n_ranges, plan.k_chunks)):
+        assert (c == per // n).all()
+
+
+def emulate_blocks(slots: np.ndarray, cand: np.ndarray):
+    """The frontier kernel's work, block by block, in numpy: each block
+    lists the sessions of its range where its tile has a nonzero word, in
+    order, and adds one to (p, k) for each listed session where the AND
+    is nonzero.  Returns the support and each block's list."""
+    p_prefixes, n_sessions, _ = slots.shape
+    k_items = cand.shape[0]
+    cand_t = cand.transpose(1, 0, 2)
+    plan = ops.frontier_plan(p_prefixes, k_items, n_sessions)
+    out = np.zeros((p_prefixes, k_items), np.int64)
+    lists = []
+    for rows, sess, cands in plan_blocks(plan, p_prefixes, k_items,
+                                         n_sessions):
+        tile = slots[rows][:, sess]                           # (r, n, W)
+        listed = sess[(tile != 0).any(axis=(0, 2))]
+        lists.append((rows, sess, listed))
+        hit = slots[rows][:, listed, None, :] & cand_t[listed][None, :, cands]
+        out[np.ix_(rows, cands)] += (hit != 0).any(-1).sum(1)
+    return out, lists
+
+
+@pytest.mark.parametrize("case", range(len(SPARSE)),
+                         ids=[name for name, _, _ in SPARSE])
+def test_frontier_blocks_list_each_nonzero_pair_once(case):
+    """Laid out as the kernel's blocks, the lists hold each (prefix,
+    session) with a nonzero slot word once, a tile that is empty over a
+    range lists nothing there, and the counts add up to the plain
+    version's."""
+    _, slots, cand = SPARSE[case]
+    got, lists = emulate_blocks(slots, cand)
+    np.testing.assert_array_equal(
+        got, jax_ref.frontier_join_support(slots, cand))
+    listed = np.zeros(slots.shape[:2], np.int64)
+    k_chunks = ops.frontier_plan(*slots.shape[:1], cand.shape[0],
+                                 slots.shape[1]).k_chunks
+    for rows, sess, sess_listed in lists:
+        nonzero = (slots[rows][:, sess] != 0).any(-1)          # (r, n)
+        assert np.array_equal(sess_listed, sess[nonzero.any(0)])
+        on = np.isin(sess, sess_listed)
+        listed[np.ix_(rows, sess[on])] += nonzero[:, on]
+    np.testing.assert_array_equal(
+        listed, k_chunks * (slots != 0).any(-1).astype(np.int64))
+
+
+def test_session_major_copy_and_its_checks():
+    """On the CPU there is no copy to make: the plain version reads cand
+    as it is.  A copy of another shape is refused on every device."""
+    slots = torch.zeros((2, 5, 3), dtype=torch.int32)
+    cand = torch.zeros((4, 5, 3), dtype=torch.int32)
+    assert ops.session_major(cand) is None
+    good = cand.transpose(0, 1).contiguous()
+    assert ops.frontier_join_support(slots, cand, good).shape == (2, 4)
+    for bad, err in [(cand, ValueError), (good[:, :3], ValueError),
+                     (good.to(torch.int64), TypeError),
+                     (cand.permute(1, 0, 2), ValueError)]:
+        with pytest.raises(err):
+            ops.frontier_join_support(slots, cand, bad)

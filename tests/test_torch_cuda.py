@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 from repro_torch.core import mining  # noqa: E402
 from repro_torch.core.sessions import SequenceDatabase  # noqa: E402
 from repro_torch.kernels.bitmap_support import ops, ref  # noqa: E402
@@ -22,14 +23,20 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-#: tests/test_kernels.py's grids, then ragged tiles, split sessions and
-#: sessions wider than one staged chunk of the frontier kernel
+#: tests/test_kernels.py's grids, then ragged tiles, several session
+#: ranges and W up to 130
 SSTEP_GRID = [(1, 7, 1), (5, 100, 3), (8, 512, 1), (9, 513, 2),
               (32, 1000, 4), (3, 1, 1), (70, 5000, 1), (4, 300, 70)]
 FRONTIER_GRID = [(1, 1, 7, 1), (5, 9, 100, 2), (8, 8, 128, 1),
                  (9, 17, 130, 3), (16, 32, 512, 1), (3, 2, 1, 1),
                  (33, 65, 300, 2), (3, 5, 20_000, 1), (4, 33, 50, 70),
                  (40, 40, 3000, 130)]
+
+
+#: chip_smoke.py's sparse grid for the frontier kernel (0, 1, 10 and 100%
+#: of pairs nonzero and its edges), as tests/test_torch_bitmap_support.py
+#: holds the plain version to the JAX package's oracle on it
+SPARSE = chip_smoke.frontier_cases(np.random.default_rng(3))
 
 
 @pytest.fixture
@@ -65,6 +72,21 @@ def test_frontier_kernel_equals_plain(card, p_prefixes, k_items, n_sessions,
     got = ops.frontier_join_support(slots, cand)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.frontier_join_support(slots, cand))
+
+
+@pytest.mark.parametrize("case", range(len(SPARSE)),
+                         ids=[name for name, _, _ in SPARSE])
+def test_frontier_kernel_equals_plain_on_the_sparse_grid(card, case):
+    """Exact, with the walk's session-major copy of cand and without it
+    (the wrapper makes its own)."""
+    _, slots, cand = SPARSE[case]
+    slots, cand = (torch.from_numpy(x.view(np.int32)).cuda()
+                   for x in (slots, cand))
+    want = ref.frontier_join_support(slots, cand)
+    for cand_t in (ops.session_major(cand), None):
+        got = ops.frontier_join_support(slots, cand, cand_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("budget", [64 << 20, 1])

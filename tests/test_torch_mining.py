@@ -204,3 +204,50 @@ def test_bitmap_algorithms_default_to_cuda():
     _, tdb = both(random_sessions())
     with pytest.raises(RuntimeError, match="CUDA"):
         tm.mine(tdb, tm.MiningParams())
+
+
+# ---------------------------------------------------------------------------
+# what the compacted frontier join lists
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("maxgap", [1, 2, None])
+@pytest.mark.parametrize("stream", ["seqb", "tpcc", "long"])
+def test_nonzero_slot_sessions_never_exceed_support(monkeypatch, stream,
+                                                    maxgap):
+    """The frontier kernel lists, for each prefix, the sessions where its
+    slot words are nonzero.  At every level of the walk that count is at
+    most the prefix's support as the walk holds it (``fsups``: a slot bit
+    lies in a session where the prefix occurs), so a level's join work is
+    bounded by numbers the host already has.  ``fsups`` is rebuilt here as
+    the walk builds it: the frequent items' supports, then each level's
+    surviving supports in row-major order."""
+    sessions = {"seqb": seqb_sessions, "tpcc": tpcc_sessions,
+                "long": lambda: random_sessions(n_items=40, max_len=90)}[
+                    stream]()
+    _, tdb = both(sessions)
+    # without a gap bound, the long stream's lattice at minsup 0.05 runs
+    # to tens of GB: there 0.3 and length 6 (three levels, up to 981
+    # prefixes)
+    wide = stream == "long" and maxgap is None
+    params = tm.MiningParams(minsup=0.3 if wide else 0.05, min_len=2,
+                             max_len=6 if wide else 15, maxgap=maxgap)
+    levels = []
+    join = tm._frontier_support
+
+    def spy(slots, cand, cand_t, allowed=None):
+        sup = join(slots, cand, cand_t, allowed)
+        levels.append(((slots != 0).any(-1).sum(-1).numpy(), sup))
+        return sup
+
+    monkeypatch.setattr(tm, "_frontier_support", spy)
+    assert tm.mine(tdb, params, "vmsp", device="cpu")
+    msc = params.minsup_count(len(tdb))
+    vb = tm.VerticalBitmaps(tdb, msc, device="cpu")
+    fsups = vb.freq_support[vb.freq_support >= msc]
+    assert len(levels) >= 2
+    for nonzero, sup in levels:
+        assert nonzero.shape == fsups.shape
+        assert (nonzero <= fsups).all()
+        assert nonzero.sum() > 0
+        fsups = sup[sup >= msc]
