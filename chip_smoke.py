@@ -11,16 +11,19 @@ Phases, in order; any failure exits non-zero and none is caught:
 1. Environment: torch, CUDA, ``nvcc``, the card's name and power limit,
    and the time to build the kernels from ``src/repro_torch`` (one
    ``nvcc`` per source, started together), with ``ptxas``'s registers,
-   shared memory and spills; the count of ``HGMMA`` (tensor-core)
-   instructions in the tensor-core flash kernel's SASS, by
-   ``cuobjdump -sass``, which must be above 0.
+   shared memory and spills; the count of ``HGMMA`` (warpgroup
+   tensor-core) instructions in the bf16 flash kernel's SASS and of
+   ``HMMA`` (``mma.sync``) instructions in the split-TF32 one, by
+   ``cuobjdump -sass``, each of which must be above 0.
 2. Kernel parity: both support-join kernels against their plain PyTorch
-   versions on edge-case grids, requiring exact equality (the frontier
+   versions on edge-case grids, requiring exact equality (the s-step
+   kernel also on slots nonzero in 0.4%, 1% and 12.6% of the sessions,
+   the densities of the SEQB spill walk; the frontier
    kernel also on the sparse grid of ``frontier_cases``: 0, 1, 10 and 100%
    of (prefix, session) pairs nonzero, one prefix in every session among
    empty ones, only the last of W > 1 words set, bit 31 only); both
    flash-attention kernels (the tensor-core route, bf16 at head_dim 64
-   and 128, and the CUDA-core route, f32 and small bf16 head_dims)
+   and 128, and the split-TF32 route, f32 and small bf16 head_dims)
    against their plain version on the grids of ``tests/test_kernels.py``
    and more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
    Lq < Lk = 513, GQA 56/8, MQA), f32 within 2e-5 with TF32 off and bf16
@@ -32,9 +35,12 @@ Phases, in order; any failure exits non-zero and none is caught:
    client with prefetches.  Both kernels are then checked and timed at
    the shapes this mine gave them, the frontier kernel also on random
    words at the same shape (every pair nonzero), with its device time and
-   device operations per call from ``torch.profiler``.
+   device operations per call from ``torch.profiler``; the s-step kernel
+   at the densest DFS node (the best root) and a median one, with its
+   device time and both of its bounds (this data's and the dense one).
 4. Spill path: the same backlog mined with ``frontier_budget=1`` must
-   launch the s-step kernel and give the same patterns, in order.
+   launch the s-step kernel and give the same patterns, in order; its
+   profile gives the s-step kernels' device total and the busy share.
 5. Card against CPU: the same client on ``device="cpu"`` (plain versions)
    must mine the same patterns, in order, and serve stage 2 with the same
    (value, latency) pairs and statistics.
@@ -42,18 +48,19 @@ Phases, in order; any failure exits non-zero and none is caught:
    weights from seed 0 made on the card, ``attention_impl="pallas"``,
    through ``ServingEngine``: 3 requests of batch 4 x prompt 2,048 x 32
    greedy tokens.  Every prefill layer must launch the tensor-core flash
-   kernel (32 x 3), never the CUDA-core one and never the plain version.
+   kernel (32 x 3), never the split-TF32 one and never the plain version.
    One prefill and one decode step are profiled.
 7. Serving against the plain path: the first request's bf16 prefill
    logits against ``attention_impl="reference"``, within 5% of their
    standard deviation or within bf16's own floor, measured by running
    the kernel's plain version in its place; at full width cut to 2
-   layers in f32 (the CUDA-core route), all 4 x 32 greedy tokens equal
+   layers in f32 (the split-TF32 route), all 4 x 32 greedy tokens equal
    between kernel and plain paths.
 8. Timing of each flash kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (the yardstick; never on the path)
    at the prefill shape, beside the card's bound: the tensor-core kernel
-   in bf16, the CUDA-core kernel in f32.
+   in bf16, the split-TF32 kernel in f32 (bound: three TF32 products a
+   product at 495 TFLOP/s, with the f32 FMA bound beside it).
 9. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
@@ -86,8 +93,8 @@ TPU_KERNELS = "src/repro/kernels/bitmap_support/bitmap_support.py"
 FLASH_KERNELS = {
     "tensor_core": ("flash_attention", "src/repro_torch/kernels/"
                     "flash_attention/csrc/flash_attention_wgmma.cu"),
-    "cuda_core": ("flash_attention_cuda_core", "src/repro_torch/kernels/"
-                  "flash_attention/csrc/flash_attention.cu"),
+    "tf32x3": ("flash_attention_tf32x3", "src/repro_torch/kernels/"
+               "flash_attention/csrc/flash_attention_tf32x3.cu"),
 }
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/flash_attention.py:112"
 DEVICE = "cuda"
@@ -113,6 +120,10 @@ PEAK_OPS_PER_S = 67e12
 #: dense bf16 tensor-core rate (NVIDIA's data sheet): the bound of
 #: attention on bf16 inputs
 PEAK_BF16_FLOP_PER_S = 989e12
+#: dense TF32 tensor-core rate (the same sheet); split TF32 runs three
+#: TF32 products for each f32 one
+PEAK_TF32_FLOP_PER_S = 495e12
+TF32_SPLIT_PRODUCTS = 3
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +213,10 @@ def time_ms(torch, fn: Callable[[], object], reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def profiled(torch, fn: Callable[[], object]) -> dict:
+def profiled(torch, fn: Callable[[], object]) -> tuple[dict, float]:
     """Run ``fn`` under ``torch.profiler``; print the device's busy time by
     kernel and its share of the wall time, and return the busy time by
-    kernel name (us, launches)."""
+    kernel name (us, launches) and the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,7 +237,13 @@ def profiled(torch, fn: Callable[[], object]) -> dict:
           f"{wall_us / 1e3:.3f} ms wall (busy share {busy_us / wall_us:.4f})")
     for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
-    return by_kernel
+    return by_kernel, busy_us / wall_us
+
+
+def kernel_total(by_kernel: dict, name: str) -> tuple[float, int]:
+    """Device ms and launches of the kernels whose name holds ``name``."""
+    hits = [v for k, v in by_kernel.items() if name in k]
+    return sum(t for t, _ in hits) / 1e3, sum(n for _, n in hits)
 
 
 def device_work(torch, fn: Callable[[], object], reps: int = 10) -> dict:
@@ -345,6 +362,31 @@ def frontier_cases(rng) -> list:
     return cases
 
 
+#: (K, S, W, density): the s-step kernel's sparse grid, slot rows nonzero
+#: in this share of the sessions: the SEQB spill walk's median node
+#: (0.4%), 1%, its densest node (12.6%) and every session; 4 one-word
+#: sessions a thread (S % 4 == 0) or one (S % 4 != 0), W > 1, one
+#: session range and many, K past one block's 32 candidates
+SSTEP_DENSITY_GRID = [(467, 10_000, 1, 0.004), (300, 2_000, 1, 0.01),
+                      (467, 10_000, 1, 0.126), (70, 4_099, 1, 0.126),
+                      (33, 1_000, 3, 0.01), (40, 700, 2, 0.126),
+                      (5, 12, 1, 1.0), (100, 5_001, 1, 1.0)]
+
+
+def sstep_cases(rng) -> list:
+    """The s-step kernel's sparse grid: (name, slots, cand), uint32 numpy
+    words, the slot words random and nonzero in ``density`` of the
+    sessions, the candidates random."""
+    cases = []
+    for k, s, w, d in SSTEP_DENSITY_GRID:
+        slots = rng.integers(1, 2 ** 32, size=(s, w), dtype=np.uint32)
+        slots *= (rng.random((s, 1)) < d).astype(np.uint32)
+        cand = rng.integers(0, 2 ** 32, size=(k, s, w), dtype=np.uint32)
+        cases.append((f"{d:.1%} of sessions nonzero, K={k} S={s} W={w}",
+                      slots, cand))
+    return cases
+
+
 def edge_parity(torch, parity: Parity) -> None:
     rng = np.random.default_rng(0)
     for k, s, w in SSTEP_GRID:
@@ -353,6 +395,9 @@ def edge_parity(torch, parity: Parity) -> None:
     for p, k, s, w in FRONTIER_GRID:
         parity.frontier(random_words(torch, rng, (p, s, w)),
                         random_words(torch, rng, (k, s, w)))
+    for _, slots, cand in sstep_cases(np.random.default_rng(4)):
+        parity.sstep(*(torch.from_numpy(x.view(np.int32)).to(DEVICE)
+                       for x in (slots, cand)))
     for name, slots, cand in frontier_cases(np.random.default_rng(3)):
         parity.frontier(*(torch.from_numpy(x.view(np.int32)).to(DEVICE)
                           for x in (slots, cand)), name)
@@ -552,7 +597,7 @@ def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
     print(f"serve path counts: {counted}")
     want = cfg.n_layers * SERVE_REQUESTS
     if counted["kernel"] != {"flash_attention": want, "tensor_core": want,
-                             "cuda_core": 0}:
+                             "tf32x3": 0}:
         raise AssertionError(f"the serving run did not launch the "
                              f"tensor-core flash kernel, and only it, {want} "
                              f"times: {counted['kernel']}")
@@ -645,7 +690,7 @@ def serve_against_plain(torch, fa_ref, srv: dict) -> None:
 def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> int:
     """Phase 7, f32 part: full width cut to F32_LAYERS layers; every
     greedy token equal between kernel and plain paths.  Returns the
-    launches of the CUDA-core flash kernel, the route of f32, on the
+    launches of the split-TF32 flash kernel, the route of f32, on the
     kernel path."""
     from repro_torch import configs
     from repro_torch.models import init_params, prefill
@@ -667,9 +712,9 @@ def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> int:
                                    device=DEVICE).generate(prompts, SERVE_NEW)
     launched = dict(fa_ops.counts)
     if launched != {"flash_attention": 2 * F32_LAYERS, "tensor_core": 0,
-                    "cuda_core": 2 * F32_LAYERS}:
+                    "tf32x3": 2 * F32_LAYERS}:
         raise AssertionError(f"the f32 kernel path did not launch the "
-                             f"CUDA-core flash kernel once a layer in each "
+                             f"split-TF32 flash kernel once a layer in each "
                              f"of its 2 prefills: {launched}")
     diff = float((logits["pallas"] - logits["reference"]).abs().max())
     same = int((outs["pallas"] == outs["reference"]).sum())
@@ -679,15 +724,15 @@ def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> int:
     if same != outs["pallas"].size:
         raise AssertionError("f32 greedy tokens differ between the kernel "
                              "and plain paths")
-    return launched["cuda_core"]
+    return launched["tf32x3"]
 
 
 def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
                  card: str) -> dict:
     """Phase 8: each flash kernel, the plain version and SDPA at the
     prefill shape, on the model's layout ((B, S, H, D) viewed as
-    (B, H, S, D)): the tensor-core route in bf16, the CUDA-core route in
-    f32 (TF32 off).  Returns each route's timing."""
+    (B, H, S, D)): the tensor-core route in bf16, the split-TF32 route in
+    f32 (TF32 off for the plain version and SDPA).  Returns each route's timing."""
     import torch.nn.functional as F
 
     b, h, l, d = SERVE_BATCH, cfg.n_heads, SERVE_PROMPT, cfg.head_dim
@@ -696,8 +741,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # q, k, v read once and out written once
     flop = 4 * b * h * d * (l * (l + 1) // 2)
     timing = {}
-    for dtype, peak in ((torch.bfloat16, PEAK_BF16_FLOP_PER_S),
-                        (torch.float32, PEAK_OPS_PER_S)):
+    for dtype, peak, products in (
+            (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1),
+            (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS)):
         which = fa_ops.route(dtype, d)
         rng = np.random.default_rng(1)
         q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(
@@ -718,7 +764,11 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
                     *a, is_causal=True)),
         }
         n_bytes = 4 * b * h * l * d * q.element_size()
-        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flop, peak)
+        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, products * flop,
+                                                    peak)
+        if dtype == torch.float32:
+            # the CUDA-core design's bound: f32 FMAs at 67 TFLOP/s
+            out["ffma_bound_ms"] = bound_ms(n_bytes, flop)[0]
         out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
                    dtype=str(dtype).split(".")[-1],
                    tflop_s=flop / out["ms"] / 1e9,
@@ -730,8 +780,10 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
               f"plain {out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} "
               f"ms (its max abs diff from the plain version "
               f"{sdpa_err:.3e}), bound {out['bound_ms']:.4f} ms "
-              f"({out['bound_by']}: {flop:.4e} FLOP at {peak:.3g} FLOP/s, "
-              f"{n_bytes} B) [{card}]")
+              f"({out['bound_by']}: {products} x {flop:.4e} FLOP at "
+              f"{peak:.3g} FLOP/s, {n_bytes} B)"
+              + (f"; f32 FMA bound {out['ffma_bound_ms']:.4f} ms"
+                 if "ffma_bound_ms" in out else "") + f" [{card}]")
         timing[which] = out
         del q, k, v, qkv
     return timing
@@ -800,13 +852,16 @@ def main(argv=None) -> int:
         print(f"tensor-core flash kernel at head_dim {d}: "
               f"{tc.flash_attention_wgmma_smem_bytes(d)} B of dynamic "
               f"shared memory a block")
-    tc_instructions = {op: sass_count(tc._name, op) for op in ("HGMMA",
-                                                                "HMMA")}
-    print(f"tensor-core flash kernel SASS: {tc_instructions['HGMMA']} HGMMA, "
-          f"{tc_instructions['HMMA']} HMMA instructions")
-    if tc_instructions["HGMMA"] == 0:
-        raise AssertionError("the tensor-core flash kernel has no HGMMA "
-                             "instruction")
+    # the tensor-core instructions each flash kernel must hold: warpgroup
+    # products (HGMMA) in the bf16 kernel, mma.sync (HMMA) in split TF32
+    tc_instructions = {}
+    for which, opcode in (("tensor_core", "HGMMA"), ("tf32x3", "HMMA")):
+        tc_instructions[which] = sass_count(libs[which]._name, opcode)
+        print(f"{FLASH_KERNELS[which][0]} SASS: {tc_instructions[which]} "
+              f"{opcode} instructions")
+        if tc_instructions[which] == 0:
+            raise AssertionError(f"the {which} flash kernel has no {opcode} "
+                                 f"instruction")
 
     # -- phase 2: kernel parity on edge grids ---------------------------
     parity = Parity(torch, ops, ref)
@@ -884,12 +939,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"direct mine of the backlog (bitmaps built anew), warm: "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall [{card}]")
-    by_kernel = profiled(torch, direct_mine)
-    frontier = [v for name, v in by_kernel.items()
-                if "frontier_join_kernel" in name]
-    print(f"  frontier kernels in the warm mine: "
-          f"{sum(t for t, _ in frontier) / 1e3:.3f} ms over "
-          f"{sum(n for _, n in frontier)} launches [{card}]")
+    frontier_ms, frontier_n = kernel_total(profiled(torch, direct_mine)[0],
+                                           "frontier_join_kernel")
+    print(f"  frontier kernels in the warm mine: {frontier_ms:.3f} ms over "
+          f"{frontier_n} launches [{card}]")
     shadow = core.PatternMetastore(cfg.metastore_capacity,
                                    cfg.mining.max_len)
     shadow.populate([p for p in patterns if p.support >= 2])
@@ -912,10 +965,17 @@ def main(argv=None) -> int:
     cand = vb.bits[torch.as_tensor(rows, device=DEVICE)]
     cand_t = ops.session_major(cand)
     slots = vb.extension_slots(cand, cfg.mining.maxgap).contiguous()
-    root = int(np.argmax(vb.freq_support[rows]))
-    root_slots = vb.extension_slots(cand[root], cfg.mining.maxgap).contiguous()
+    # the s-step join of the densest DFS node (the best root) and of a
+    # median one (the root of median support); a child is never denser
+    # than its parent
+    order = np.argsort(vb.freq_support[rows], kind="stable")
+    sstep_slots = {
+        where: vb.extension_slots(cand[int(i)], cfg.mining.maxgap).contiguous()
+        for where, i in (("root", order[-1]), ("median", order[len(order) // 2]))}
+    root_slots = sstep_slots["root"]
     parity.frontier(slots, cand, "first level")
-    parity.sstep(root_slots, cand)
+    for sl in sstep_slots.values():
+        parity.sstep(sl, cand)
     p_, k_, s_, w_ = (*slots.shape[:1], *cand.shape)
     # the frontier kernel at the same shape on random words, where every
     # (prefix, session) pair is nonzero and nothing can be skipped
@@ -930,8 +990,28 @@ def main(argv=None) -> int:
     nnz = int((slots != 0).sum())
     f_bound, f_by = bound_ms((p_ + k_) * s_ * w_ * 4 + p_ * k_ * 4, nnz * k_)
     f_dense, _ = bound_ms(0, p_ * k_ * s_ * w_)
-    s_bound, s_by = bound_ms(2 * k_ * s_ * w_ * 4 + s_ * w_ * 4 + k_ * 4,
-                             k_ * s_ * w_)
+    s_dense, _ = bound_ms(2 * k_ * s_ * w_ * 4 + s_ * w_ * 4 + k_ * 4,
+                          k_ * s_ * w_)
+    # the s-step join's data bound: joined written whole, the slots and
+    # support once, and the K candidate words of each session where the
+    # slot row is nonzero (a zero slot word needs no candidate word)
+    sstep = {}
+    for where, sl in sstep_slots.items():
+        listed = int((sl != 0).any(-1).sum())
+        bound, by = bound_ms(k_ * s_ * w_ * 4 + s_ * w_ * 4 + k_ * 4
+                             + listed * k_ * w_ * 4, listed * k_ * w_)
+        sw = device_work(torch, lambda a=sl: ops.sstep_join_support(a, cand))
+        kms = sum(ms for op, ms in sw["by_name"].items()
+                  if "sstep_join_kernel" in op)
+        sstep[where] = dict(listed=listed, bound_ms=bound, bound_by=by,
+                            device_ms=sw["ms"], kernel_device_ms=kms,
+                            device_ops=sw["ops"])
+        print(f"sstep_join_support at the {where} node ({listed} of {s_} "
+              f"sessions nonzero): device time {sw['ms']:.4f} ms a call in "
+              f"{sw['ops']:.1f} device operations ({', '.join(sorted(sw['by_name']))[:160]}), "
+              f"of it the kernel {kms:.4f} ms ({bound / kms:.4f} of this "
+              f"data's bound {bound:.6f} ms, {by}); dense bound "
+              f"{s_dense:.6f} ms [{card}]")
     work = device_work(torch, lambda: ops.frontier_join_support(
         slots, cand, cand_t))
     full_work = device_work(torch, lambda: ops.frontier_join_support(
@@ -955,9 +1035,20 @@ def main(argv=None) -> int:
             nonzero_slot_words=nnz),
         "sstep_join_support": dict(
             ms=time_ms(torch, lambda: ops.sstep_join_support(root_slots, cand)),
+            ms_median=time_ms(torch, lambda: ops.sstep_join_support(
+                sstep_slots["median"], cand)),
             plain_ms=time_ms(torch, lambda: ref.sstep_join_support(
                 root_slots, cand)),
-            bound_ms=s_bound, bound_by=s_by, shape=[k_, s_, w_]),
+            bound_ms=sstep["root"]["bound_ms"],
+            bound_by=sstep["root"]["bound_by"], dense_bound_ms=s_dense,
+            device_ms=sstep["root"]["device_ms"],
+            kernel_device_ms=sstep["root"]["kernel_device_ms"],
+            launches_per_call=sstep["root"]["device_ops"],
+            nonzero_slot_sessions=sstep["root"]["listed"],
+            median_bound_ms=sstep["median"]["bound_ms"],
+            median_kernel_device_ms=sstep["median"]["kernel_device_ms"],
+            median_nonzero_slot_sessions=sstep["median"]["listed"],
+            shape=[k_, s_, w_]),
     }
     for name, t in timing.items():
         print(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
@@ -1010,6 +1101,18 @@ def main(argv=None) -> int:
         raise AssertionError("the spill mine ran a plain version")
     if (pattern_list(spilled), spill_minsup) != (pattern_list(patterns), minsup):
         raise AssertionError("the spill path mined other patterns")
+    print("profile of the spill mine (warm):")
+    spill_prof, spill_busy = profiled(torch, lambda: core.mine_dynamic_minsup(
+        db, dataclasses.replace(cfg.mining, frontier_budget=1), cfg.algo,
+        device=DEVICE, **dyn))
+    spill_sstep_ms, spill_sstep_n = kernel_total(spill_prof,
+                                                 "sstep_join_kernel")
+    print(f"  s-step kernels in the spill mine: {spill_sstep_ms:.3f} ms over "
+          f"{spill_sstep_n} launches ({spill_sstep_ms / spill_sstep_n * 1e3:.2f}"
+          f" us each); busy share {spill_busy:.4f} [{card}]")
+    timing["sstep_join_support"].update(
+        spill_wall_ms=spill_s * 1e3, spill_kernel_device_ms=spill_sstep_ms,
+        spill_busy_share=spill_busy)
 
     # -- phase 5: card against CPU --------------------------------------
     # the same client on the CPU (plain versions), same store and traffic:
@@ -1072,16 +1175,13 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": t["shape"],
-            **({key: t[key] for key in (
-                "ms_full_density", "launches_per_call", "device_ms",
-                "kernel_device_ms", "kernel_device_ms_full_density",
-                "session_major_ms", "dense_bound_ms", "nonzero_slot_words")}
-               if name == "frontier_join_support" else {}),
+            **{key: t[key] for key in t if key not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         })
-    # the tensor-core kernel is the serve path's; the CUDA-core one runs
+    # the tensor-core kernel is the serve path's; the split-TF32 one runs
     # the f32 check of phase 7
     flash_paths = {"tensor_core": ("serve", serve_counts["kernel"]),
-                   "cuda_core": ("f32_check", {"cuda_core": f32_launches})}
+                   "tf32x3": ("f32_check", {"tf32x3": f32_launches})}
     for which, (name, source) in FLASH_KERNELS.items():
         path, counted = flash_paths[which]
         t = flash[which]
@@ -1097,8 +1197,9 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tflop_s": t["tflop_s"], "bound_share": t["bound_share"],
             "shape": t["shape"], "dtype": t["dtype"], "causal": True,
-            **({"tensor_core_instructions": tc_instructions["HGMMA"]}
-               if which == "tensor_core" else {}),
+            "tensor_core_instructions": tc_instructions[which],
+            **({"ffma_bound_ms": t["ffma_bound_ms"]}
+               if "ffma_bound_ms" in t else {}),
         })
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -41,11 +41,26 @@
 //   bit, and nothing is shifted.
 //
 // sstep_join_support: joined[k] = slots & cand[k] and support[k] =
-//   #sessions with a nonzero word of joined[k].
-//   Bound: bytes, 2*K*S*W*4 + S*W*4 (read cand, write joined, read
-//   slots once).  Design: one fused pass, one thread per session; a
-//   block covers a session range of one candidate row, reduces its count
-//   with warp shuffles and shared memory, and adds it with one atomicAdd.
+//   #sessions with a nonzero word of joined[k].  It runs once per node of
+//   the DFS spill walk.
+//   Bound: bytes.  joined is written whole, K*S*W words, zeros included,
+//   and the slots are read once; past that, a candidate word is needed
+//   only where its slot word is nonzero, which in the SEQB walk is 12.6%
+//   of the sessions at the densest node (the best root) and 0.4% at a
+//   median one.  The dense design read all K*S*W candidate words, 99.6%
+//   of them against a zero slot word at a median node.
+//   Design: a block owns a range of 256 threads' sessions and up to
+//   kSstepMaxK candidates.  It reads its slot words once into registers
+//   and walks its candidates; for each one a thread loads its candidate
+//   words only where its slot words are nonzero (a predicated load, so a
+//   warp fetches only the sectors of nonzero sessions) and stores the AND
+//   to joined, coalesced, 16 bytes a thread where the layout allows
+//   (W == 1, S % 4 == 0, aligned bases: 4 sessions a thread).  Counts are
+//   warp sums gathered per candidate in shared memory, skipped by a warp
+//   whose slot words are all zero, and leave the block once: stored when
+//   one block covers every session, else added with an int32 atomicAdd
+//   into the output that the launcher zeroes.  The grid is
+//   ops.sstep_plan's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -222,41 +237,130 @@ void launch_frontier(const uint32_t* slots, const uint32_t* cand_t,
   }
 }
 
-constexpr int kSessionsPerThread = 4;
-constexpr int kSessionsPerBlock = kThreads * kSessionsPerThread;
+constexpr int kSstepThreads = 256;
+constexpr int kSstepMaxK = 32;               // candidates a block, at most
+constexpr int kSstepUnroll = 4;              // candidate loads in flight
 
-__global__ void __launch_bounds__(kThreads)
-sstep_join_kernel(const uint32_t* __restrict__ slots,
-                  const uint32_t* __restrict__ cand,
-                  uint32_t* __restrict__ joined,
-                  int32_t* __restrict__ support,
-                  int K, int S, int W, int blocks_per_row) {
-  __shared__ int warp_sums[kThreads / 32];
-  const int k = blockIdx.x / blocks_per_row;
-  const int s_lo = (blockIdx.x % blocks_per_row) * kSessionsPerBlock;
-  const int s_hi = min(S, s_lo + kSessionsPerBlock);
-  const size_t row = (size_t)k * S * W;
+__device__ __forceinline__ uint32_t and_words(uint32_t a, uint32_t b) {
+  return a & b;
+}
+__device__ __forceinline__ uint4 and_words(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+}
+__device__ __forceinline__ bool any_word(uint32_t v) { return v != 0u; }
+__device__ __forceinline__ bool any_word(uint4 v) {
+  return (v.x | v.y | v.z | v.w) != 0u;
+}
+__device__ __forceinline__ int nonzero_words(uint32_t v) { return v != 0u; }
+__device__ __forceinline__ int nonzero_words(uint4 v) {
+  return (v.x != 0u) + (v.y != 0u) + (v.z != 0u) + (v.w != 0u);
+}
+template <typename V>
+__device__ __forceinline__ V zero_words();
+template <>
+__device__ __forceinline__ uint32_t zero_words<uint32_t>() { return 0u; }
+template <>
+__device__ __forceinline__ uint4 zero_words<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
 
-  int count = 0;
-  for (int s = s_lo + threadIdx.x; s < s_hi; s += kThreads) {
-    uint32_t a = 0u;
-    for (int w = 0; w < W; ++w) {
-      const size_t i = (size_t)s * W + w;
-      const uint32_t v = slots[i] & cand[row + i];
-      joined[row + i] = v;
-      a |= v;
-    }
-    count += a != 0u;
-  }
-  count = __reduce_add_sync(0xffffffffu, count);
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = count;
+// The block's per-candidate counts, gathered in shared memory, go out
+// once: stored when the block covers every session, else added.
+__device__ __forceinline__ void sstep_flush(const int* s_count,
+                                            int32_t* support, int k0, int nk,
+                                            int n_ranges) {
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-#pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
-    if (total != 0) atomicAdd(&support[k], total);
+  if ((int)threadIdx.x < nk) {
+    const int n = s_count[threadIdx.x];
+    if (n_ranges == 1) {
+      support[k0 + threadIdx.x] = n;
+    } else if (n != 0) {
+      atomicAdd(support + k0 + threadIdx.x, n);
+    }
   }
+}
+
+// One-word sessions (W == 1): a thread owns V = uint4 (4 sessions, one
+// 16-byte load and store a candidate) or uint32_t (1 session).  A block
+// owns a range of kSstepThreads V's and nk <= kSstepMaxK candidates; it
+// reads its slot words once and keeps them in registers for all nk.
+template <typename V>
+__global__ void __launch_bounds__(kSstepThreads)
+sstep_join_kernel(const V* __restrict__ slots, const V* __restrict__ cand,
+                  V* __restrict__ joined, int32_t* __restrict__ support,
+                  int K, int n_vec, int n_ranges, int k_per_block) {
+  __shared__ int s_count[kSstepMaxK];
+  const int range = blockIdx.x % n_ranges;
+  const int k0 = blockIdx.x / n_ranges * k_per_block;
+  const int nk = min(k_per_block, K - k0);
+  const int i = range * kSstepThreads + threadIdx.x;
+  const bool in = i < n_vec;
+  const V sv = in ? slots[i] : zero_words<V>();
+  const bool nz = any_word(sv);
+  // warp-uniform: a warp whose slot words are all zero counts nothing
+  const bool warp_nz = __any_sync(0xffffffffu, nz);
+  if (threadIdx.x < kSstepMaxK) s_count[threadIdx.x] = 0;
+  __syncthreads();
+  const V* c = cand + (size_t)k0 * n_vec + i;
+  V* j = joined + (size_t)k0 * n_vec + i;
+  for (int kk = 0; kk < nk; kk += kSstepUnroll) {
+    V cv[kSstepUnroll];
+#pragma unroll
+    for (int u = 0; u < kSstepUnroll; ++u)   // only where a slot is nonzero
+      cv[u] = nz && kk + u < nk ? __ldg(c + (size_t)(kk + u) * n_vec)
+                                : zero_words<V>();
+#pragma unroll
+    for (int u = 0; u < kSstepUnroll; ++u) {
+      if (kk + u >= nk) break;
+      const V jv = and_words(sv, cv[u]);
+      if (in) j[(size_t)(kk + u) * n_vec] = jv;
+      if (warp_nz) {
+        const int n = __reduce_add_sync(0xffffffffu, nonzero_words(jv));
+        if (threadIdx.x % 32 == 0 && n != 0) atomicAdd(s_count + kk + u, n);
+      }
+    }
+  }
+  sstep_flush(s_count, support, k0, nk, n_ranges);
+}
+
+// W > 1 words a session: a thread owns one session and reads a
+// candidate word only where its slot word is nonzero.
+__global__ void __launch_bounds__(kSstepThreads)
+sstep_join_wide_kernel(const uint32_t* __restrict__ slots,
+                       const uint32_t* __restrict__ cand,
+                       uint32_t* __restrict__ joined,
+                       int32_t* __restrict__ support, int K, int S, int W,
+                       int n_ranges, int k_per_block) {
+  __shared__ int s_count[kSstepMaxK];
+  const int range = blockIdx.x % n_ranges;
+  const int k0 = blockIdx.x / n_ranges * k_per_block;
+  const int nk = min(k_per_block, K - k0);
+  const int s = range * kSstepThreads + threadIdx.x;
+  const bool in = s < S;
+  const uint32_t* sl = slots + (size_t)s * W;
+  bool nz = false;
+  if (in)
+    for (int w = 0; w < W; ++w) nz |= sl[w] != 0u;
+  const bool warp_nz = __any_sync(0xffffffffu, nz);
+  if (threadIdx.x < kSstepMaxK) s_count[threadIdx.x] = 0;
+  __syncthreads();
+  for (int kk = 0; kk < nk; ++kk) {
+    const size_t row = ((size_t)(k0 + kk) * S + s) * W;
+    uint32_t any = 0u;
+    if (in) {
+      for (int w = 0; w < W; ++w) {
+        const uint32_t sw = sl[w];
+        const uint32_t v = sw != 0u ? sw & __ldg(cand + row + w) : 0u;
+        joined[row + w] = v;
+        any |= v;
+      }
+    }
+    if (warp_nz) {
+      const int n = __reduce_add_sync(0xffffffffu, (int)(any != 0u));
+      if (threadIdx.x % 32 == 0 && n != 0) atomicAdd(s_count + kk, n);
+    }
+  }
+  sstep_flush(s_count, support, k0, nk, n_ranges);
 }
 
 }  // namespace
@@ -301,15 +405,41 @@ int frontier_join_support_launch(const uint32_t* slots, const uint32_t* cand_t,
   return (int)cudaGetLastError();
 }
 
-// support must hold K zeroed int32; joined K*S*W uint32.
+// joined holds K*S*W uint32, support K int32 (zeroed here, on the
+// stream, when n_ranges > 1).  vec is 4 (W == 1, S % 4 == 0 and every
+// base 16-byte aligned: a thread owns 4 sessions) or 1.  The grid is
+// n_ranges * ceil(K / k_per_block) blocks (ranges fastest), n_ranges *
+// kSstepThreads * vec >= S, k_per_block <= kSstepMaxK.
 int sstep_join_support_launch(const uint32_t* slots, const uint32_t* cand,
                               uint32_t* joined, int32_t* support, int K, int S,
-                              int W, int device, cudaStream_t stream) {
+                              int W, int vec, int n_ranges, int k_per_block,
+                              int device, cudaStream_t stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks_per_row = (S + kSessionsPerBlock - 1) / kSessionsPerBlock;
-  sstep_join_kernel<<<K * blocks_per_row, kThreads, 0, stream>>>(
-      slots, cand, joined, support, K, S, W, blocks_per_row);
+  const long long units = W == 1 ? (long long)S / vec : S;
+  const long long blocks =
+      (long long)n_ranges * ((K + (long long)k_per_block - 1) / k_per_block);
+  if (k_per_block < 1 || k_per_block > kSstepMaxK || blocks > 0x7fffffffLL ||
+      (vec != 1 && vec != 4) || (vec == 4 && (W != 1 || S % 4 != 0)) ||
+      (long long)n_ranges * kSstepThreads < units)
+    return (int)cudaErrorInvalidConfiguration;
+  if (n_ranges > 1) {
+    const cudaError_t zero = cudaMemsetAsync(
+        support, 0, (size_t)K * sizeof(int32_t), stream);
+    if (zero != cudaSuccess) return (int)zero;
+  }
+  if (W > 1) {
+    sstep_join_wide_kernel<<<(int)blocks, kSstepThreads, 0, stream>>>(
+        slots, cand, joined, support, K, S, W, n_ranges, k_per_block);
+  } else if (vec == 4) {
+    sstep_join_kernel<uint4><<<(int)blocks, kSstepThreads, 0, stream>>>(
+        reinterpret_cast<const uint4*>(slots),
+        reinterpret_cast<const uint4*>(cand), reinterpret_cast<uint4*>(joined),
+        support, K, (int)units, n_ranges, k_per_block);
+  } else {
+    sstep_join_kernel<uint32_t><<<(int)blocks, kSstepThreads, 0, stream>>>(
+        slots, cand, joined, support, K, (int)units, n_ranges, k_per_block);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,9 @@ Words are ``int32`` tensors holding the miner's ``uint32`` bitmaps.
 
 The frontier kernel joins only the (prefix, session) pairs with a nonzero
 slot word, against :func:`session_major` of the candidates; its grid is
-:func:`frontier_plan`.
+:func:`frontier_plan`.  The s-step kernel reads a candidate word only
+where its slot word is nonzero and writes ``joined`` whole; its grid is
+:func:`sstep_plan`.
 
 ``counts`` holds the kernel launches since the last reset: a wrapper adds
 one where it launches its kernel and nowhere else.
@@ -31,7 +33,8 @@ from .._launch import launch_args, on_cpu
 from . import ref
 
 __all__ = ["frontier_join_support", "sstep_join_support", "session_major",
-           "frontier_plan", "FrontierPlan", "counts", "load"]
+           "frontier_plan", "FrontierPlan", "sstep_plan", "SstepPlan",
+           "counts", "load"]
 
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "bitmap_support.cu",)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,13 +42,17 @@ _SIGNATURES = {
     # slots, cand_t, support, P, K, S, W, n_ranges, n_tiles, k_chunks,
     # kpt, device, stream
     "frontier_join_support_launch": [_P, _P, _P, *[_I] * 9, _P],
-    # slots, cand, joined, support, K, S, W, device, stream
-    "sstep_join_support_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # slots, cand, joined, support, K, S, W, vec, n_ranges, k_per_block,
+    # device, stream
+    "sstep_join_support_launch": [_P, _P, _P, _P, *[_I] * 7, _P],
 }
 _TILE_ROWS = 8          # kTileRows: prefixes per block of the frontier kernel
 _JOIN_THREADS = 256     # kJoinThreads: its threads and sessions per block
 _KPT = (1, 2, 4)        # candidates a thread may hold
-_SSTEP_SESSIONS_PER_BLOCK = 1024   # kSessionsPerBlock of the s-step kernel
+_SSTEP_THREADS = 256    # kSstepThreads: the s-step kernel's threads a block
+_SSTEP_MAX_K = 32       # kSstepMaxK: its candidates a block, at most
+#: blocks the s-step grid aims for: four for each of the H100's 132 SMs
+_SSTEP_BLOCKS = 4 * 132
 _INT_MAX = 2 ** 31 - 1
 
 #: kernel launches since the last reset
@@ -91,6 +98,37 @@ def frontier_plan(p_prefixes: int, k_items: int,
         n_ranges=math.ceil(n_sessions / _JOIN_THREADS),
         n_tiles=math.ceil(p_prefixes / _TILE_ROWS),
         k_chunks=math.ceil(k_items / (kpt * _JOIN_THREADS)), kpt=kpt)
+
+
+@dataclasses.dataclass(frozen=True)
+class SstepPlan:
+    """The s-step kernel's grid: ``k_blocks * n_ranges`` blocks (ranges
+    fastest), each owning ``_SSTEP_THREADS * vec`` sessions and
+    ``k_per_block`` candidates; ``vec`` is the sessions a thread owns."""
+
+    vec: int
+    n_ranges: int
+    k_per_block: int
+    k_blocks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.k_blocks * self.n_ranges
+
+
+def sstep_plan(k_items: int, n_sessions: int, n_words: int,
+               aligned: bool = True) -> SstepPlan:
+    """The grid that covers every (session, candidate) once: 4 one-word
+    sessions a thread (16-byte loads and stores) where ``n_words`` is 1,
+    ``n_sessions`` a multiple of 4 and the bases ``aligned`` to 16 bytes,
+    else one; candidates spread over blocks until the grid has about
+    :data:`_SSTEP_BLOCKS` blocks."""
+    vec = 4 if n_words == 1 and n_sessions % 4 == 0 and aligned else 1
+    n_ranges = max(1, math.ceil(n_sessions // vec / _SSTEP_THREADS))
+    k_per_block = min(_SSTEP_MAX_K, max(1, math.ceil(
+        k_items * n_ranges / _SSTEP_BLOCKS)))
+    return SstepPlan(vec=vec, n_ranges=n_ranges, k_per_block=k_per_block,
+                     k_blocks=math.ceil(k_items / k_per_block))
 
 
 def session_major(cand: torch.Tensor) -> Optional[torch.Tensor]:
@@ -161,17 +199,21 @@ def sstep_join_support(slots: torch.Tensor, cand: torch.Tensor
                          f"cand {tuple(cand.shape)}")
     if on_cpu(slots, cand):
         return ref.sstep_join_support(slots, cand)
-    support = torch.zeros((k_items,), dtype=torch.int32, device=cand.device)
     joined = torch.empty_like(cand)
     if min(k_items, n_sessions, n_words) == 0:
-        return joined, support
-    if max(k_items * math.ceil(n_sessions / _SSTEP_SESSIONS_PER_BLOCK),
-           n_sessions * n_words) > _INT_MAX:
+        return joined, torch.zeros((k_items,), dtype=torch.int32,
+                                   device=cand.device)
+    if max(k_items, n_sessions * n_words) > _INT_MAX:
         raise ValueError("join too large for 32-bit indices")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (slots, cand, joined))
+    plan = sstep_plan(k_items, n_sessions, n_words, aligned)
     dev, stream = launch_args(cand)
+    support = torch.empty((k_items,), dtype=torch.int32,
+                          device=cand.device)   # zeroed by the launcher
     err = load().sstep_join_support_launch(
         slots.data_ptr(), cand.data_ptr(), joined.data_ptr(),
-        support.data_ptr(), k_items, n_sessions, n_words, dev, stream)
+        support.data_ptr(), k_items, n_sessions, n_words, plan.vec,
+        plan.n_ranges, plan.k_per_block, dev, stream)
     if err:
         raise RuntimeError(f"sstep_join_support launch failed: "
                            f"CUDA error {err}")

@@ -15,9 +15,12 @@ a call takes from its dtype and head_dim alone:
   the tensor cores, TMA loads.  It reads its inputs through TMA tensor
   maps, so each base must be 16-byte aligned and each stride a positive
   multiple of 16 bytes; the wrapper raises ``ValueError`` otherwise.
-* ``"cuda_core"``: float32 at every head_dim, and bfloat16 at 16 or 32,
-  ``csrc/flash_attention.cu``: f32 FMAs on the CUDA cores.  Float32 stays
-  here because the tensor cores would round it to TF32.
+* ``"tf32x3"``: float32 at every head_dim, and bfloat16 at 16 or 32,
+  ``csrc/flash_attention_tf32x3.cu``: ``mma.sync`` on the tensor cores in
+  split TF32, each f32 operand split into a TF32 high and low part and
+  each product the sum of three TF32 products, which keeps f32 accuracy
+  (a bfloat16 operand is exact in TF32 and is not split).  It takes any
+  base and strides, copying 16 bytes at a time where they allow.
 
 Each kernel takes its tensors' (batch, head, position) strides and needs
 only the head_dim to be contiguous, so a transposed view of the model's
@@ -52,10 +55,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TAIL = [*[_L] * 12, _I, _P]
 #: route -> (library, sources, its C functions' argument types)
 _LIBRARIES = {
-    "cuda_core": ("flash_attention", (_CSRC / "flash_attention.cu",), {
+    "tf32x3": ("flash_attention_tf32x3",
+               (_CSRC / "flash_attention_tf32x3.cu",), {
         # q, k, v, out, dtype, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale, ...
-        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, ctypes.c_float, *_TAIL]}),
+        "flash_attention_tf32x3_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, ctypes.c_float,
+                                          *_TAIL]}),
     "tensor_core": ("flash_attention_wgmma",
                     (_CSRC / "flash_attention_wgmma.cu",), {
         # q, k, v, out, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale, ...
@@ -69,22 +74,21 @@ ROUTES = tuple(_LIBRARIES)
 HEAD_DIMS = (16, 32, 64, 128)
 _TENSOR_CORE_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_Q = {"cuda_core": 64, "tensor_core": 128}   # q rows per block
-_MAX_Q_TILES = 65_535     # the CUDA-core grid's y limit
+_BLOCK_Q = {"tf32x3": 64, "tensor_core": 128}   # q rows per block
 _INT_MAX = 2 ** 31 - 1    # a grid's x limit
 _TMA_ALIGN = 16           # bytes, of a TMA tensor map's base and strides
 
 #: kernel launches since the last reset: the total and each route's
-counts = {"flash_attention": 0, "tensor_core": 0, "cuda_core": 0}
+counts = {"flash_attention": 0, "tensor_core": 0, "tf32x3": 0}
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a call with these inputs launches on a card:
     ``"tensor_core"`` for bfloat16 at head_dim 64 or 128, else
-    ``"cuda_core"``."""
+    ``"tf32x3"``."""
     if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_DIMS:
         return "tensor_core"
-    return "cuda_core"
+    return "tf32x3"
 
 
 def load(which: str = "tensor_core") -> ctypes.CDLL:
@@ -134,14 +138,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_grid(which: str, b: int, hq: int, lq: int) -> None:
     """Raise ``ValueError`` where route ``which``'s grid cannot hold the
-    call: (B * Hq, q tiles) on the CUDA cores, 1-D over (B * Hq) x q tiles
-    on the tensor cores."""
-    q_tiles = -(-lq // _BLOCK_Q[which])
-    if which == "tensor_core":
-        fits = b * hq * q_tiles <= _INT_MAX
-    else:
-        fits = b * hq <= _INT_MAX and q_tiles <= _MAX_Q_TILES
-    if not fits:
+    call: each route's grid is 1-D over (B * Hq) x q tiles of
+    ``_BLOCK_Q[which]`` rows."""
+    if b * hq * -(-lq // _BLOCK_Q[which]) > _INT_MAX:
         raise ValueError(f"q ({b}, {hq}, {lq}, D) exceeds the {which} "
                          f"kernel's grid")
 
@@ -186,9 +185,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
     rest = [b, hq, hkv, lq, lk, d, int(causal), float(sm_scale),
             *(s for t in (q, k, v, out) for s in _strides(t)), dev, stream]
-    if which == "cuda_core":
-        err = load(which).flash_attention_launch(*ptrs, _DTYPES[q.dtype],
-                                                 *rest)
+    if which == "tf32x3":
+        err = load(which).flash_attention_tf32x3_launch(
+            *ptrs, _DTYPES[q.dtype], *rest)
     else:
         err = load(which).flash_attention_wgmma_launch(*ptrs, *rest)
     if err:

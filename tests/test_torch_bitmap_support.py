@@ -251,3 +251,72 @@ def test_session_major_copy_and_its_checks():
                      (cand.permute(1, 0, 2), ValueError)]:
         with pytest.raises(err):
             ops.frontier_join_support(slots, cand, bad)
+
+
+#: chip_smoke.py's sparse grid for the s-step kernel: slot rows nonzero in
+#: 0.4%, 1%, 12.6% and all of the sessions
+SSTEP_SPARSE = chip_smoke.sstep_cases(np.random.default_rng(4))
+
+
+@pytest.mark.parametrize("k_items,n_sessions,n_words,aligned", [
+    (1, 1, 1, True), (467, 10_000, 1, True), (467, 10_000, 1, False),
+    (70, 4_099, 1, True), (33, 1_000, 3, True), (5_000, 40, 1, True),
+    (3, 1_025, 1, True), (2, 100_000, 2, True)])
+def test_sstep_plan_covers_every_pair_once(k_items, n_sessions, n_words,
+                                           aligned):
+    """Ranges of 256 threads tile the sessions (4 one-word sessions a
+    thread where the layout allows it), blocks of at most 32 candidates
+    tile K, and neither leaves a block empty."""
+    plan = ops.sstep_plan(k_items, n_sessions, n_words, aligned)
+    assert plan.vec == (4 if n_words == 1 and n_sessions % 4 == 0
+                        and aligned else 1)
+    span = 256 * plan.vec
+    assert (plan.n_ranges - 1) * span < n_sessions <= plan.n_ranges * span
+    assert 1 <= plan.k_per_block <= 32
+    assert ((plan.k_blocks - 1) * plan.k_per_block < k_items
+            <= plan.k_blocks * plan.k_per_block)
+    assert plan.blocks == plan.n_ranges * plan.k_blocks
+
+
+def emulate_sstep_blocks(slots: np.ndarray, cand: np.ndarray):
+    """The s-step kernel's work, block by block, in numpy: each block reads
+    its slot words once and, for each of its candidates, the candidate
+    words beside nonzero slot words only.  Returns joined, support and
+    the candidate words read."""
+    n_sessions, n_words = slots.shape
+    k_items = cand.shape[0]
+    plan = ops.sstep_plan(k_items, n_sessions, n_words)
+    span = 256 * plan.vec
+    joined = np.zeros_like(cand)
+    support = np.zeros(k_items, np.int64)
+    read = 0
+    for r in range(plan.n_ranges):
+        sess = slice(r * span, min(n_sessions, (r + 1) * span))
+        sw = slots[sess]
+        nz = sw != 0
+        for kb in range(plan.k_blocks):
+            for k in range(kb * plan.k_per_block,
+                           min(k_items, (kb + 1) * plan.k_per_block)):
+                joined[k, sess][nz] = sw[nz] & cand[k, sess][nz]
+                read += int(nz.sum())
+                support[k] += int((joined[k, sess] != 0).any(-1).sum())
+    return joined, support, read
+
+
+@pytest.mark.parametrize("case", range(len(SSTEP_SPARSE)),
+                         ids=[name for name, _, _ in SSTEP_SPARSE])
+def test_sstep_plain_and_blocks_match_jax_on_the_sparse_grid(case):
+    """The plain version equals the JAX package's oracle on the sparse
+    grid; laid out as the kernel's blocks, reading only the candidate
+    words beside nonzero slot words gives the same bits and supports, and
+    reads (nonzero slot words) x K words."""
+    _, slots, cand = SSTEP_SPARSE[case]
+    want_joined, want_sup = jax_ref.sstep_join_support(jnp.asarray(slots),
+                                                       jnp.asarray(cand))
+    joined, sup = ops.sstep_join_support(as_torch(slots), as_torch(cand))
+    np.testing.assert_array_equal(as_u32(joined), np.asarray(want_joined))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(want_sup))
+    got_joined, got_sup, read = emulate_sstep_blocks(slots, cand)
+    np.testing.assert_array_equal(got_joined, np.asarray(want_joined))
+    np.testing.assert_array_equal(got_sup, np.asarray(want_sup))
+    assert read == int((slots != 0).sum()) * cand.shape[0]

@@ -62,6 +62,41 @@ def test_sstep_kernel_equals_plain(card, k_items, n_sessions, n_words):
     assert torch.equal(sup, want_sup)
 
 
+#: chip_smoke.py's sparse grid for the s-step kernel: slot rows nonzero in
+#: 0.4% (a median DFS node of the SEQB spill walk), 1%, 12.6% (its
+#: densest node) and all of the sessions
+SSTEP_SPARSE = chip_smoke.sstep_cases(np.random.default_rng(4))
+
+
+@pytest.mark.parametrize("case", range(len(SSTEP_SPARSE)),
+                         ids=[name for name, _, _ in SSTEP_SPARSE])
+def test_sstep_kernel_equals_plain_on_sparse_slots(card, case):
+    """Bit-exact where most slot words are zero, and the kernel reads a
+    candidate word only beside a nonzero one."""
+    _, slots, cand = SSTEP_SPARSE[case]
+    slots, cand = (torch.from_numpy(x.view(np.int32)).cuda()
+                   for x in (slots, cand))
+    before = ops.counts["sstep_join_support"]
+    joined, sup = ops.sstep_join_support(slots, cand)
+    torch.cuda.synchronize()
+    assert ops.counts["sstep_join_support"] == before + 1
+    want_joined, want_sup = ref.sstep_join_support(slots, cand)
+    assert torch.equal(joined, want_joined)
+    assert torch.equal(sup, want_sup)
+
+
+def test_sstep_kernel_takes_an_unaligned_row(card):
+    """A slot row that starts 4 bytes into its buffer takes the one-word
+    path and gives the same bits."""
+    rng = np.random.default_rng(12)
+    slots = words(rng, (4_001, 1)).view(-1)[1:].view(4_000, 1)
+    cand = words(rng, (50, 4_000, 1))
+    joined, sup = ops.sstep_join_support(slots, cand)
+    torch.cuda.synchronize()
+    want_joined, want_sup = ref.sstep_join_support(slots, cand)
+    assert torch.equal(joined, want_joined) and torch.equal(sup, want_sup)
+
+
 @pytest.mark.parametrize("p_prefixes,k_items,n_sessions,n_words",
                          FRONTIER_GRID)
 def test_frontier_kernel_equals_plain(card, p_prefixes, k_items, n_sessions,
@@ -177,6 +212,34 @@ def test_flash_kernel_reads_strided_views(card, no_tf32, dtype, s, d):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("case", ["offset_1", "position_stride_odd",
+                                  "bf16_offset_1"])
+def test_tf32x3_kernel_takes_unaligned_views(card, no_tf32, case):
+    """The split-TF32 kernel copies 4 bytes at a time where a base or a
+    stride rules out 16: an offset view, rows 65 floats apart, a bf16
+    view one element in."""
+    rng = np.random.default_rng(13)
+    dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    d = 32 if dtype == torch.bfloat16 else 64
+    shape = (1, 4, 100, d)
+    data = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    if case == "position_stride_odd":
+        q = torch.zeros((1, 4, 100, d + 1), device="cuda")[..., :d]
+    else:
+        q = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype,
+                        device="cuda")[1:].view(shape)
+    q.copy_(data.to("cuda", dtype))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 100, d)).astype(
+        np.float32)).to("cuda", dtype) for _ in range(2))
+    before = fa_ops.counts["tf32x3"]
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["tf32x3"] == before + 1
+    want = fa_ref.flash_attention(q.contiguous(), k, v)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_tensor_core_grid_takes_many_heads(card):
     """B * Hq = 65,664, past a grid's y limit of 65,535, with two q tiles
     a head: the tensor-core kernel's 1-D grid holds it."""
@@ -241,13 +304,13 @@ def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
     np.testing.assert_array_equal(on_card, on_cpu)
     assert fa_ops.counts["flash_attention"] == (
         before[0]["flash_attention"] + cfg.n_layers)
-    assert fa_ops.counts["cuda_core"] == before[0]["cuda_core"] + cfg.n_layers
+    assert fa_ops.counts["tf32x3"] == before[0]["tf32x3"] + cfg.n_layers
     assert fa_ref.counts == before[1]
 
 
 def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
     """Reduced codeqwen in bf16 at head_dim 128: every prefill layer takes
-    the tensor-core route, none the CUDA-core one or the plain version."""
+    the tensor-core route, none the split-TF32 one or the plain version."""
     from repro_torch import configs
     from repro_torch.models import init_params
     from repro_torch.serving import ServeConfig, ServingEngine
@@ -265,5 +328,5 @@ def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
     assert out.shape == (2, 8)
     assert {r: fa_ops.counts[r] - before[0][r] for r in fa_ops.counts} == {
         "flash_attention": cfg.n_layers, "tensor_core": cfg.n_layers,
-        "cuda_core": 0}
+        "tf32x3": 0}
     assert fa_ref.counts == before[1]

@@ -135,9 +135,10 @@ def test_empty_kv_gives_zeros():
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_route(dtype, head_dim):
     """bf16 at the dense and GQA configs' head dims (64, 128) takes the
-    tensor cores; f32 stays on the CUDA cores, which keep it f32."""
+    wgmma kernel; f32, and bf16 at 16 and 32, the split-TF32 kernel,
+    which keeps f32 accuracy on the tensor cores."""
     want = ("tensor_core" if dtype == "bfloat16" and head_dim in (64, 128)
-            else "cuda_core")
+            else "tf32x3")
     assert ops.route(getattr(torch, dtype), head_dim) == want
     assert want in ops.ROUTES
 
@@ -186,8 +187,9 @@ def test_tensor_core_route_rejects_unaligned_inputs(case):
 
 @pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 32)])
 def test_cuda_core_route_takes_unaligned_inputs(dtype, d):
-    """The CUDA-core kernel reads elementwise: an offset view goes in and
-    gives what a contiguous copy gives."""
+    """The split-TF32 route takes views the wgmma route refuses: an offset
+    view goes in and gives what a contiguous copy gives (on a card its
+    kernel copies 4 bytes at a time there, not 16)."""
     dtype = getattr(torch, dtype)
     q = _offset_view((1, 4, 8, d), dtype)
     q.copy_(torch.from_numpy(np.random.default_rng(8).standard_normal(
@@ -233,13 +235,14 @@ def test_wrapper_rejects(case, exc):
 
 
 @pytest.mark.parametrize("which,b,hq,lq,fits", [
-    # a 1-D grid: B * Hq past the 65,535 of a grid's y dimension fits
+    # both grids are 1-D over (B * Hq) x q tiles (128 rows on the wgmma
+    # route, 64 on split TF32): B * Hq past a y dimension's 65,535 fits
     ("tensor_core", 2048, 32, 2048, True),
     ("tensor_core", 1, 1, 128 * (2 ** 31 - 1), True),
     ("tensor_core", 2 ** 16, 2 ** 8, 128 * 2 ** 7, False),
-    ("cuda_core", 2048, 32, 64 * 65_535, True),
-    ("cuda_core", 1, 1, 64 * 65_535 + 1, False),
-    ("cuda_core", 2 ** 31, 1, 64, False),
+    ("tf32x3", 2048, 32, 2048, True),
+    ("tf32x3", 1, 1, 64 * (2 ** 31 - 1), True),
+    ("tf32x3", 2 ** 16, 2 ** 8, 64 * 2 ** 7, False),
 ])
 def test_grid_limits(which, b, hq, lq, fits):
     """Each route's grid holds these calls, or the wrapper raises before it
@@ -249,3 +252,65 @@ def test_grid_limits(which, b, hq, lq, fits):
     else:
         with pytest.raises(ValueError, match="grid"):
             ops._check_grid(which, b, hq, lq)
+
+
+def tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """f32 to TF32 (10 mantissa bits) on the int32 view, as the kernel
+    does it: rounded to nearest, ties away from zero (``cvt.rna.tf32``'s
+    rounding: add half of the dropped 13 bits to the magnitude, then clear
+    them), or truncated (clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (0x1000 if rounded else 0)) & ~0x1FFF).view(torch.float32)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, split: bool):
+    """a @ b as the split-TF32 kernel takes it: each operand split into
+    big = tf32(x) and small = x - big truncated to TF32, and the three
+    products small*big, big*small, big*big summed in f32, small terms
+    first; or, unsplit, one TF32 product.  TF32 x TF32 products are exact
+    in f32."""
+    ab, bb = tf32(a), tf32(b)
+    if not split:
+        return ab @ bb
+    a_small, b_small = tf32(a - ab, False), tf32(b - bb, False)
+    return a_small @ bb + ab @ b_small + ab @ bb
+
+
+def emulated_attention(q, k, v, split: bool, causal: bool = True):
+    """The kernel's arithmetic on the CPU: scores and P @ V through
+    :func:`split_matmul`, the softmax in f32."""
+    lq, lk, d = q.shape[2], k.shape[2], q.shape[3]
+    s = split_matmul(q, k.transpose(-1, -2), split) * d ** -0.5
+    if causal:
+        rows = torch.arange(lq)[:, None] + (lk - lq)
+        s = s.masked_fill(rows < torch.arange(lk)[None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return split_matmul(p, v, split) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_split_tf32_keeps_f32_accuracy_and_one_tf32_product_does_not(d):
+    """Why the f32 route splits: with each f32 operand as a TF32 high and
+    low part, three TF32 products per product stay within the f32 gate
+    (2e-5 + 2e-5 * |plain|) of the plain version at D 32 and 128; one
+    TF32 product (10 mantissa bits) misses it many times over."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(
+        np.random.default_rng(14), 1, 2, 2, 128, 128, d))
+    want = ref.flash_attention(q, k, v)
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        1000).astype(np.float32))
+    assert torch.equal(tf32(tf32(x)), tf32(x))
+    assert ((tf32(x) - x).abs() <= x.abs() * 2.0 ** -11).all()
+    rest = x - tf32(x)
+    assert ((x - tf32(x) - tf32(rest, False)).abs()
+            <= x.abs() * 2.0 ** -21).all()
+    # a bf16 value is exact in TF32: bf16 operands need no split
+    xb = x.to(torch.bfloat16).float()
+    assert torch.equal(tf32(xb), xb)
+    tol = 2e-5
+    excess = {}
+    for split in (True, False):
+        diff = (emulated_attention(q, k, v, split) - want).abs()
+        excess[split] = float((diff - tol * want.abs()).max())
+    assert excess[True] <= tol
+    assert excess[False] > 10 * tol

@@ -251,3 +251,45 @@ def test_nonzero_slot_sessions_never_exceed_support(monkeypatch, stream,
         assert (nonzero <= fsups).all()
         assert nonzero.sum() > 0
         fsups = sup[sup >= msc]
+
+
+@pytest.mark.parametrize("stream", ["seqb", "tpcc", "long"])
+@pytest.mark.parametrize("maxgap", [1, None])
+def test_spill_slot_sessions_never_exceed_node_support(monkeypatch, stream,
+                                                       maxgap):
+    """On the DFS spill walk each node joins its slot row against every
+    candidate with ``sstep_join_support``; the row is nonzero in at most
+    the node's support of sessions (a slot bit lies in a session where the
+    node's pattern occurs), so the s-step kernel, which reads a candidate
+    word only beside a nonzero slot word, reads at most support x K of
+    them.  Every s-step call of the walk is checked against the support
+    its node was reached with."""
+    sessions = {"seqb": seqb_sessions, "tpcc": tpcc_sessions,
+                "long": lambda: random_sessions(n_items=40, max_len=90)}[
+                    stream]()
+    _, tdb = both(sessions)
+    wide = stream == "long" and maxgap is None
+    params = tm.MiningParams(minsup=0.3 if wide else 0.05, min_len=2,
+                             max_len=6 if wide else 15, maxgap=maxgap,
+                             frontier_budget=1)
+    nodes, calls = [], []
+    expand, join = tm._dfs_expand, tm._ops.sstep_join_support
+
+    def spy_expand(vb, params, msc, cand, cand_items, pattern, pbits, sup,
+                   *rest):
+        nodes.append((int((pbits != 0).any(-1).sum()), int(sup)))
+        return expand(vb, params, msc, cand, cand_items, pattern, pbits, sup,
+                      *rest)
+
+    def spy_join(slots, cand):
+        calls.append((len(nodes), int((slots != 0).any(-1).sum())))
+        return join(slots, cand)
+
+    monkeypatch.setattr(tm, "_dfs_expand", spy_expand)
+    monkeypatch.setattr(tm._ops, "sstep_join_support", spy_join)
+    assert tm.mine(tdb, params, "vmsp", device="cpu")
+    assert calls
+    for node, nonzero in calls:
+        occurs, sup = nodes[node - 1]     # the node that made this call
+        assert occurs == sup
+        assert nonzero <= sup
