@@ -23,11 +23,12 @@ Phases, in order; any failure exits non-zero and none is caught:
    of (prefix, session) pairs nonzero, one prefix in every session among
    empty ones, only the last of W > 1 words set, bit 31 only); both
    flash-attention kernels (the tensor-core route, bf16 at head_dim 64
-   and 128, and the split-TF32 route, f32 and small bf16 head_dims)
+   and 128, and the split-TF32 route, f32 and every other bf16 head_dim)
    against their plain version on the grids of ``tests/test_kernels.py``
    and more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
-   Lq < Lk = 513, GQA 56/8, MQA), f32 within 2e-5 with TF32 off and bf16
-   within 2e-2.
+   Lq < Lk = 513, GQA 56/8, MQA) and the split-TF32 kernel's head_dims
+   40, 48, 72, 80, 96 and 112 (zamba2-7b's; 40 and 72 zero-padded), f32
+   within 2e-5 with TF32 off and bf16 within 2e-2.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
@@ -60,8 +61,25 @@ Phases, in order; any failure exits non-zero and none is caught:
    ``scaled_dot_product_attention`` (the yardstick; never on the path)
    at the prefill shape, beside the card's bound: the tensor-core kernel
    in bf16, the split-TF32 kernel in f32 (bound: three TF32 products a
-   product at 495 TFLOP/s, with the f32 FMA bound beside it).
-9. One JSON line describing each ported kernel, then the result line.
+   product at 495 TFLOP/s, with the f32 FMA bound beside it), and the
+   split-TF32 kernel in f32 at head_dim 112.
+9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
+   with the numpy engine over the SEQB client's index and the stage-2
+   requests, for each heuristic (equal waves at every op); the per-op
+   cost of both at 1, 16 and 64 live contexts on ``bench_overhead``'s
+   chain forest.
+10. Cluster: ``bench_cluster``'s largest static configuration (8 shards,
+   16 tenants, 250 TPC-C transactions a tenant a stage), every tenant
+   mining on the card (each tenant's mine launches the frontier kernel,
+   never a plain version), mean read latency below the baseline's, and
+   latencies, statistics and exchanged patterns equal to the same run on
+   the CPU; one profile of a tenant's warm ``mine_now``.
+11. Expert prefetcher: ``bench_serving``'s full closed loop (4 shards,
+   500 requests) for each traffic shape, one ``ExpertPrefetcher`` a
+   tenant mining on the card (frontier kernel only, ``ExpertStore``
+   decoding to CUDA tensors), its statistics equal to the same loop on
+   the CPU; one profile of a prefetcher's warm ``mine_now``.
+12. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -181,6 +199,260 @@ class SEQB:
                           for _ in range(size)]
                 blocks = [b if b >= 0 else 0 for b in blocks]
             yield [self.key(b) for b in blocks]
+
+
+# ---------------------------------------------------------------------------
+# TPC-C, the cluster sweep, the serving loop and the decision benchmark's
+# forest, copied from benchmarks/{workloads,bench_cluster,bench_serving,
+# bench_overhead}.py (which import the JAX package).  The functions take
+# the package they run on (``core``, ``serving``), so the tests run them
+# on both packages.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TPCCConfig:
+    warehouses: int = 1
+    districts: int = 10            # paper scale
+    customers_per_district: int = 300   # paper: 3000 (scaled 10x)
+    items: int = 10_000            # paper: 100,000 (scaled 10x)
+    orders_per_district: int = 90  # paper: 900 (scaled 10x)
+    value_bytes: int = 200         # paper: blocks of <= 500 bytes
+    n_transactions: int = 350      # paper: 350 second-stage transactions
+    seed: int = 0
+
+
+class TPCC:
+    """Transactions become container-access sessions; the standard mix is
+    new-order 45%, payment 43%, order-status 4%, delivery 4%, stock-level 4%.
+    """
+
+    MIX = (("new_order", 0.45), ("payment", 0.43), ("order_status", 0.04),
+           ("delivery", 0.04), ("stock_level", 0.04))
+
+    def __init__(self, cfg: TPCCConfig):
+        self.cfg = cfg
+
+    @staticmethod
+    def k_warehouse(w):
+        return ("warehouse", f"w{w}", "info")
+
+    @staticmethod
+    def k_district(w, d):
+        return ("district", f"w{w}d{d}", "info")
+
+    @staticmethod
+    def k_customer(w, d, c):
+        return ("customer", f"w{w}d{d}c{c}", "info")
+
+    @staticmethod
+    def k_item(i):
+        return ("item", f"i{i}", "info")
+
+    @staticmethod
+    def k_stock(w, i):
+        return ("stock", f"w{w}i{i}", "qty")
+
+    @staticmethod
+    def k_order(w, d, o):
+        return ("orders", f"w{w}d{d}o{o}", "info")
+
+    @staticmethod
+    def k_order_line(w, d, o, l):
+        return ("order_line", f"w{w}d{d}o{o}", f"l{l}")
+
+    def dataset(self) -> list:
+        cfg = self.cfg
+        val = bytes(cfg.value_bytes)
+        items = []
+        for w in range(cfg.warehouses):
+            items.append((self.k_warehouse(w), val))
+            for d in range(cfg.districts):
+                items.append((self.k_district(w, d), val))
+                for c in range(cfg.customers_per_district):
+                    items.append((self.k_customer(w, d, c), val))
+                for o in range(cfg.orders_per_district):
+                    items.append((self.k_order(w, d, o), val))
+                    for l in range(3):
+                        items.append((self.k_order_line(w, d, o, l), val))
+        for i in range(cfg.items):
+            items.append((self.k_item(i), val))
+            for w in range(cfg.warehouses):
+                items.append((self.k_stock(w, i), val))
+        return items
+
+    def transaction(self, rng) -> list:
+        cfg = self.cfg
+        r = rng.random()
+        acc = 0.0
+        kind = self.MIX[-1][0]
+        for name, p in self.MIX:
+            acc += p
+            if r < acc:
+                kind = name
+                break
+        w = int(rng.integers(0, cfg.warehouses))
+        d = int(rng.integers(0, cfg.districts))
+        c = self._nurand(rng, cfg.customers_per_district)
+        ops: list = [("r", self.k_warehouse(w)), ("r", self.k_district(w, d))]
+        if kind == "new_order":
+            ops.append(("r", self.k_customer(w, d, c)))
+            o = int(rng.integers(0, cfg.orders_per_district))
+            ops.append(("w", self.k_order(w, d, o)))
+            for l in range(int(rng.integers(2, 5))):
+                i = self._nurand(rng, cfg.items)
+                ops += [("r", self.k_item(i)), ("r", self.k_stock(w, i)),
+                        ("w", self.k_stock(w, i)),
+                        ("w", self.k_order_line(w, d, o, l))]
+        elif kind == "payment":
+            ops += [("w", self.k_warehouse(w)), ("w", self.k_district(w, d)),
+                    ("r", self.k_customer(w, d, c)),
+                    ("w", self.k_customer(w, d, c))]
+        elif kind == "order_status":
+            o = int(rng.integers(0, cfg.orders_per_district))
+            ops += [("r", self.k_customer(w, d, c)),
+                    ("r", self.k_order(w, d, o))]
+            ops += [("r", self.k_order_line(w, d, o, l)) for l in range(3)]
+        elif kind == "delivery":
+            for o in rng.integers(0, cfg.orders_per_district, size=3):
+                ops += [("r", self.k_order(w, d, int(o))),
+                        ("w", self.k_order(w, d, int(o)))]
+        else:  # stock_level
+            for i in rng.integers(0, cfg.items, size=6):
+                ops.append(("r", self.k_stock(w, int(i))))
+        return ops
+
+    @staticmethod
+    def _nurand(rng, n: int) -> int:
+        """Non-uniform access (TPC-C NURand flavour): 30% of keys get 70%
+        of accesses."""
+        if rng.random() < 0.7:
+            return int(rng.integers(0, max(1, int(n * 0.3))))
+        return int(rng.integers(0, n))
+
+
+def tenant_streams(gen: TPCC, n_clients: int, n_tx: int, seed: int):
+    """One independent transaction stream per tenant (distinct rng)."""
+    out = []
+    for t in range(n_clients):
+        rng = np.random.default_rng(seed * 1000 + t)
+        out.append([gen.transaction(rng) for _ in range(n_tx)])
+    return out
+
+
+def cluster_config(core):
+    """``bench_cluster.palpatine_config()``: the bench_tpcc working point,
+    per tenant."""
+    return core.PalpatineConfig(
+        heuristic=core.HeuristicConfig("fetch_progressive"),
+        cache_bytes=1 << 20,
+        mining=core.MiningParams(minsup=0.02, min_len=3, max_len=15,
+                                 maxgap=1),
+        min_patterns=400,
+        dynamic_minsup_floor=0.002,
+        column_mining=True,
+    )
+
+
+def loadgen_config(serving, shape: str, quick: bool, seed: int):
+    """``bench_serving.loadgen_config``."""
+    return serving.LoadgenConfig(
+        n_tenants=3, n_domains=6,
+        n_layers=6, n_experts=32,
+        zipf_s=1.3, path_noise=0.1,
+        session_churn=0.5,
+        kv_seqs=48 if quick else 96, kv_blocks=2, kv_block_bytes=1024,
+        decode_steps=1,
+        requests=150 if quick else 500,
+        base_rate=400.0,
+        shape=shape, seed=seed)
+
+
+def prefetcher_config(core, serving):
+    """``bench_serving.palpatine_config(prefetch=True)`` as the expert
+    prefetcher's configuration: 16 expert slots, half of them preemptive,
+    minsup 0.05 on lengths 3-15 with maxgap 1, at least 16 patterns."""
+    return serving.PrefetcherConfig(
+        heuristic=core.HeuristicConfig("fetch_progressive"),
+        cache_experts=16, preemptive_frac=0.5,
+        mining=core.MiningParams(minsup=0.05, min_len=3, max_len=15,
+                                 maxgap=1),
+        min_patterns=16)
+
+
+def closed_loop(clients, streams) -> list:
+    """Each client's session stream, always stepping the client whose
+    virtual clock is furthest behind, one session at a time: ``("mr",
+    keys)`` through ``read_many``, ``("r", key)`` through ``read``, then
+    ``end_session``.  Returns each client's read latencies."""
+    import heapq
+
+    lats = [[] for _ in clients]
+    pos = [0] * len(clients)
+    heap = [(c.clock.now, i) for i, c in enumerate(clients) if streams[i]]
+    heapq.heapify(heap)
+    while heap:
+        _, i = heapq.heappop(heap)
+        c = clients[i]
+        for op in streams[i][pos[i]]:
+            if op[0] == "mr":
+                lats[i].append(c.read_many(op[1])[1])
+            else:
+                lats[i].append(c.read(op[1])[1])
+        c.end_session()
+        pos[i] += 1
+        if pos[i] < len(streams[i]):
+            heapq.heappush(heap, (c.clock.now, i))
+    return lats
+
+
+def prefetcher_loop(core, serving, shape: str, quick: bool, seed: int,
+                    **dev) -> dict:
+    """``bench_serving``'s closed loop served by one ``ExpertPrefetcher``
+    a tenant over one cluster-resident ``ExpertStore`` (2 shards quick, 4
+    full) and one ``PatternExchange``: a warm stream of another seed, a
+    mine of every prefetcher (publish and pull), then the measured
+    stream.  Each prefetcher also mines every 64 sessions it ends.
+    ``dev`` is ``{"device": ...}`` for the port, empty for the
+    reference."""
+    gen = serving.LoadGenerator(loadgen_config(serving, shape, quick, seed))
+    cfg = gen.cfg
+    store = serving.ExpertStore(cfg.n_layers, cfg.n_experts, d=16, f=16,
+                                dkv=core.ShardedDKVStore(2 if quick else 4),
+                                **dev)
+    store.dkv.load(gen.dataset())
+    exchange = core.PatternExchange()
+    pcfg = prefetcher_config(core, serving)
+    pfs = [serving.ExpertPrefetcher(store, pcfg, exchange=exchange, **dev)
+           for _ in range(cfg.n_tenants)]
+    warm = serving.LoadGenerator(dataclasses.replace(cfg, seed=cfg.seed + 100))
+    closed_loop(pfs, warm.streams())
+    mined = [pf.mine_now() for pf in pfs]
+    for pf in pfs:
+        pf.cache.stats = core.CacheStats()
+        pf.cache.reset_attr()
+    lats = closed_loop(pfs, gen.streams())
+    return {"lats": lats, "mined": mined,
+            "stats": [pf.stats for pf in pfs],
+            "exchanged": [(p.items, p.support) for p in exchange.store],
+            "store": store, "prefetchers": pfs}
+
+
+def chain_forest(core, window: int, length: int, fanout: int = 4):
+    """``bench_overhead.chain_forest``: a forest that holds exactly
+    ``window`` live contexts in steady state (item ``i`` roots a tree over
+    the chain ``i..i+window``), each chain node with ``fanout`` decoy
+    children, so waves have width."""
+    pats = []
+    decoy = length
+    for i in range(length - window):
+        chain = tuple(range(i, i + window + 1))
+        pats.append(core.Pattern(chain, 64))
+        for d in range(1, window + 1):
+            for f in range(fanout):
+                pats.append(core.Pattern(chain[:d] + (decoy,), 1))
+                decoy += 1
+    return core.PTreeIndex.build(pats)
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +703,12 @@ FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
 FLASH_TC_EDGES = [(1, 4, 2, 1000, 1000, 128), (1, 4, 2, 300, 100, 128),
                   (1, 2, 2, 200, 513, 128), (1, 56, 8, 300, 300, 128),
                   (2, 8, 1, 300, 300, 64), (513, 128, 8, 129, 129, 64)]
+#: the split-TF32 kernel at every head_dim it was not instantiated for
+#: before: 48, 80, 96 and 112 (zamba2-7b's) by their own instantiations,
+#: 40 and 72 zero-padded to 48 and 80; ragged 130, Lq < Lk, and GQA 8/2
+#: at 112
+FLASH_ANY_D = [(1, 2, 2, 130, 130, d) for d in (40, 48, 72, 80, 96, 112)] \
+    + [(1, 2, 2, 70, 200, 112), (2, 8, 2, 100, 100, 112)]
 #: f32 with TF32 off: both sides are true f32 and differ in summation
 #: order only; bf16: one rounding of the output
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -500,6 +778,11 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
         q, k, v = random_qkv(torch, rng, *shape, torch.bfloat16)
         for causal in (True, False):
             parity.check(q, k, v, causal)
+    for shape in FLASH_ANY_D:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = random_qkv(torch, rng, *shape, dtype)
+            for causal in (True, False):
+                parity.check(q, k, v, causal)
     # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D),
     # on each route (the tensor-core kernel reads them through TMA maps)
     for (s, hq, hkv, d), dtype in (((70, 4, 2, 32), torch.float32),
@@ -739,11 +1022,16 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # causal, Lq == Lk: l (l + 1) / 2 visible (row, column) pairs, each a
     # d-long dot product and a d-long weighted sum (2 FLOP a term); bytes:
     # q, k, v read once and out written once
-    flop = 4 * b * h * d * (l * (l + 1) // 2)
     timing = {}
-    for dtype, peak, products in (
-            (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1),
-            (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS)):
+    # the prefill shape on each route, then at zamba2-7b's head_dim 112 in
+    # f32 (the split-TF32 kernel's widest instantiation below 128)
+    for dtype, peak, products, d, key in (
+            (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, d, None),
+            (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, d,
+             None),
+            (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 112,
+             "tf32x3_d112")):
+        flop = 4 * b * h * d * (l * (l + 1) // 2)
         which = fa_ops.route(dtype, d)
         rng = np.random.default_rng(1)
         q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(
@@ -766,7 +1054,7 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
         n_bytes = 4 * b * h * l * d * q.element_size()
         out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, products * flop,
                                                     peak)
-        if dtype == torch.float32:
+        if dtype == torch.float32 and key is None:
             # the CUDA-core design's bound: f32 FMAs at 67 TFLOP/s
             out["ffma_bound_ms"] = bound_ms(n_bytes, flop)[0]
         out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
@@ -784,9 +1072,243 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
               f"{peak:.3g} FLOP/s, {n_bytes} B)"
               + (f"; f32 FMA bound {out['ffma_bound_ms']:.4f} ms"
                  if "ffma_bound_ms" in out else "") + f" [{card}]")
-        timing[which] = out
+        timing[key or which] = out
         del q, k, v, qkv
     return timing
+
+
+# ---------------------------------------------------------------------------
+# the decision walk, the cluster and the expert prefetcher on the card
+# ---------------------------------------------------------------------------
+
+#: bench_cluster's largest static configuration, full sweep
+CLUSTER_SHARDS, CLUSTER_TENANTS, CLUSTER_TX = 8, 16, 250
+#: bench_overhead's decision sweep: live contexts, steady ops a pass
+DECISION_WINDOWS, DECISION_TAIL, DECISION_REPS = (1, 16, 64), 256, 5
+
+
+def decision_phase(torch, core, client, stage2, card: str) -> dict:
+    """Phase 9: the ``"torch"`` decision engine on the card in lockstep
+    with the numpy engine over the SEQB client's mined index and the
+    stage-2 requests, for each heuristic; then the per-op cost of both at
+    1, 16 and 64 live contexts on ``bench_overhead``'s chain forest."""
+    index, db = client.engine.index, client.logger.db
+    items = [db.item_id(key) for sess in stage2 for key in sess]
+    walks = {}
+    for name in ("fetch_all", "fetch_progressive", "fetch_top_n"):
+        cfg = core.HeuristicConfig(name, top_n=5)
+        host = core.VectorizedPrefetchEngine(index, cfg, 256)
+        dev = core.VectorizedPrefetchEngine(index, cfg, 256, backend="torch",
+                                            device=DEVICE)
+        walked = prefetched = 0
+        for i, item in enumerate(items):
+            walked += dev.n_live > 0       # a step of the walk on the card
+            want = host.on_request(item)
+            if dev.on_request(item) != want or dev.n_live != host.n_live:
+                raise AssertionError(f"the torch decision engine differs from "
+                                     f"the numpy one at op {i} ({name})")
+            prefetched += len(want)
+        walks[name] = walked
+        print(f"decision walk, {name}: {len(items)} stage-2 requests over "
+              f"{len(index)} trees, equal waves at every op ({prefetched} "
+              f"items), {walked} of them advanced live contexts on the card")
+    if walks["fetch_progressive"] == 0:
+        raise AssertionError("no request advanced a context on the card")
+    cost, busy = {}, {}
+    for window in DECISION_WINDOWS:
+        length = window + DECISION_TAIL
+        forest = chain_forest(core, window, length)
+        stream = list(range(length))
+        cfg = core.HeuristicConfig("fetch_progressive", progressive_depth=3)
+        for backend in ("numpy", "torch"):
+            kw = {"device": DEVICE} if backend == "torch" else {}
+            eng = core.VectorizedPrefetchEngine(forest, cfg, 256,
+                                                backend=backend, **kw)
+
+            def steady(eng=eng, stream=stream, window=window):
+                for item in stream[window + 1:]:
+                    eng.on_request(item)
+
+            passes = []
+            for _ in range(DECISION_REPS + 1):         # the first warms up
+                eng.replace_index(forest)
+                for item in stream[:window + 1]:
+                    eng.on_request(item)
+                t0 = time.perf_counter()
+                steady()
+                passes.append(time.perf_counter() - t0)
+            cost[backend, window] = (statistics.median(passes[1:]) * 1e6
+                                     / (length - window - 1))
+        # where the card's op goes: one steady pass under the profiler
+        eng.replace_index(forest)
+        for item in stream[:window + 1]:
+            eng.on_request(item)
+        print(f"profile of the torch engine's steady pass at {window} live "
+              f"contexts ({length - window - 1} ops):")
+        _, busy[window] = profiled(torch, steady)
+        print(f"decision cost at {window} live contexts: numpy "
+              f"{cost['numpy', window]:.2f} us an op, torch on the card "
+              f"{cost['torch', window]:.2f} us an op "
+              f"({cost['torch', window] / cost['numpy', window]:.2f}x) [{card}]")
+    return {"walks": walks, "busy_share": busy,
+            "us_per_op": {f"{b}_ctx{w}": c for (b, w), c in cost.items()}}
+
+
+def cluster_run(torch, core, ops, ref, device) -> dict:
+    """Stage 1 (seed 3), a mine of every tenant, the gossip round, stage
+    2 (seed 7) on fresh statistics: the 8-shard, 16-tenant cluster."""
+    gen = TPCC(TPCCConfig())
+    store = core.ShardedDKVStore(CLUSTER_SHARDS)
+    store.load(gen.dataset())
+    cluster = core.ClusterClient(store, core.ClusterConfig(
+        n_clients=CLUSTER_TENANTS, palpatine=cluster_config(core)),
+        device=device)
+    t0 = time.perf_counter()
+    cluster.run(tenant_streams(gen, CLUSTER_TENANTS, CLUSTER_TX, seed=3))
+    stage1_s = time.perf_counter() - t0
+    # mine_all, tenant by tenant: no backlog is unchanged, so mine_all
+    # would mine each of them the same way
+    if any(t.backlog_unchanged_since_mine() for t in cluster.tenants):
+        raise AssertionError("a tenant's backlog did not grow in stage 1")
+    per_tenant = []
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in cluster.tenants:
+        before = dict(ops.counts), dict(ref.counts)
+        t.mine_now()
+        per_tenant.append(
+            (ops.counts["frontier_join_support"]
+             - before[0]["frontier_join_support"],
+             sum(ref.counts[n] - before[1][n] for n in ref.counts)))
+    if on_card:
+        torch.cuda.synchronize()
+    mine_s = time.perf_counter() - t0
+    cluster.exchange_patterns()
+    cluster.reset_stats()
+    t0 = time.perf_counter()
+    lats = cluster.run(tenant_streams(gen, CLUSTER_TENANTS, CLUSTER_TX,
+                                      seed=7))
+    stage2_s = time.perf_counter() - t0
+    return {"cluster": cluster, "lats": lats, "per_tenant": per_tenant,
+            "stage1_s": stage1_s, "mine_s": mine_s, "stage2_s": stage2_s,
+            "agg": cluster.aggregate_stats(),
+            "per_shard": cluster.per_shard_stats(),
+            "patterns": [(p.items, p.support) for p in cluster.exchange.store],
+            "col_patterns": [(p.items, p.support)
+                             for p in cluster.exchange.col_store],
+            "sessions": [len(t.logger.db) for t in cluster.tenants],
+            "items": [t.logger.db.n_items for t in cluster.tenants]}
+
+
+def cluster_phase(torch, core, ops, ref, card: str) -> dict:
+    """Phase 10: ``bench_cluster``'s largest static configuration (8
+    shards, 16 tenants, 250 TPC-C transactions a tenant a stage) with
+    every tenant mining on the card, beside the baseline and the same run
+    on the CPU."""
+    run = cluster_run(torch, core, ops, ref, DEVICE)
+    launches = sum(n for n, _ in run["per_tenant"])
+    if any(n == 0 or plain for n, plain in run["per_tenant"]):
+        raise AssertionError(f"a tenant's mine did not launch the frontier "
+                             f"kernel, or ran a plain version: "
+                             f"{run['per_tenant']}")
+    gen = TPCC(TPCCConfig())
+    store = core.ShardedDKVStore(CLUSTER_SHARDS)
+    store.load(gen.dataset())
+    base = core.ClusterBaseline(store, CLUSTER_TENANTS).run(
+        tenant_streams(gen, CLUSTER_TENANTS, CLUSTER_TX, seed=7))
+    lats = [x for ls in run["lats"] for x in ls]
+    base_lats = [x for ls in base for x in ls]
+    mean_us, base_us = np.mean(lats) * 1e6, np.mean(base_lats) * 1e6
+    if not mean_us < base_us:
+        raise AssertionError(f"the cluster's mean read latency {mean_us} us "
+                             f"does not beat the baseline's {base_us} us")
+    cpu = cluster_run(torch, core, ops, ref, "cpu")
+    for key in ("lats", "agg", "per_shard", "patterns", "col_patterns"):
+        if cpu[key] != run[key]:
+            raise AssertionError(f"the cluster on the CPU differs from the "
+                                 f"card's in {key}")
+    agg = run["agg"]
+    print(f"cluster: {CLUSTER_SHARDS} shards, {CLUSTER_TENANTS} tenants x "
+          f"{CLUSTER_TX} TPC-C transactions a stage ({run['sessions'][0]} "
+          f"sessions, {run['items'][0]} items in tenant 0's log); stage 2: "
+          f"{len(lats)} reads, hit rate {agg.hit_rate:.4f}, mean "
+          f"{mean_us:.2f} us, p99 {core.percentile(lats, 99.0) * 1e6:.2f} us "
+          f"against the baseline's {base_us:.2f} us, p99 "
+          f"{core.percentile(base_lats, 99.0) * 1e6:.2f} us (virtual clock); "
+          f"{len(run['patterns'])} row and {len(run['col_patterns'])} column "
+          f"patterns exchanged; equal to the CPU run in latencies, "
+          f"statistics, per-shard statistics and patterns")
+    print(f"cluster walls: stage 1 {run['stage1_s']:.2f} s, mine_all "
+          f"{run['mine_s']:.2f} s on the card ({launches} frontier launches, "
+          f"0 plain) against {cpu['mine_s']:.2f} s on the CPU, stage 2 "
+          f"{run['stage2_s']:.2f} s [{card}]")
+    tenant = run["cluster"].tenants[0]
+    t0 = time.perf_counter()
+    tenant.mine_now()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    print(f"profile of tenant 0's warm mine_now ({warm_ms:.1f} ms wall "
+          f"unprofiled) [{card}]:")
+    prof, busy = profiled(torch, tenant.mine_now)
+    f_ms, f_n = kernel_total(prof, "frontier_join_kernel")
+    print(f"  frontier kernels {f_ms:.3f} ms over {f_n} launches [{card}]")
+    return {"launches": launches, "mine_s": run["mine_s"],
+            "cpu_mine_s": cpu["mine_s"], "busy_share": busy,
+            "warm_mine_ms": warm_ms}
+
+
+def prefetcher_phase(torch, core, serving, ops, ref, card: str) -> dict:
+    """Phase 11: ``bench_serving``'s full closed loop (4 shards, 500
+    requests) for each traffic shape, served by expert prefetchers that
+    mine on the card, against the same loop on the CPU."""
+    out = {"launches": 0, "wall_s": {}, "cpu_wall_s": {}}
+    for i, shape in enumerate(serving.SHAPES):
+        reset_counts(ops.counts, ref.counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = prefetcher_loop(core, serving, shape, False, i, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = ops.counts["frontier_join_support"]
+        if launched == 0 or any(ref.counts.values()):
+            raise AssertionError(f"the prefetchers' mines did not run on the "
+                                 f"frontier kernel alone: "
+                                 f"{counts_now(ops, ref)}")
+        store = run["store"]
+        value = store.decode(store.weights[0, 0].tobytes())
+        if not (isinstance(value, torch.Tensor)
+                and value.device.type == torch.device(DEVICE).type):
+            raise AssertionError(f"ExpertStore.decode did not give a tensor "
+                                 f"on {DEVICE}")
+        t0 = time.perf_counter()
+        cpu = prefetcher_loop(core, serving, shape, False, i, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        for key in ("lats", "mined", "stats", "exchanged"):
+            if cpu[key] != run[key]:
+                raise AssertionError(f"the prefetchers on the CPU differ from "
+                                     f"the card's in {key} ({shape})")
+        lats = [x for ls in run["lats"] for x in ls]
+        st = run["stats"]
+        hits = sum(s["prefetch_hits"] for s in st)
+        print(f"expert prefetcher, {shape}: {len(lats)} reads, hit rates "
+              f"{', '.join('%.4f' % s['hit_rate'] for s in st)}, "
+              f"{hits} prefetch hits, mean {np.mean(lats) * 1e6:.2f} us, p99 "
+              f"{core.percentile(lats, 99.0) * 1e6:.2f} us (virtual clock); "
+              f"mined {run['mined']}, {len(run['exchanged'])} patterns "
+              f"exchanged; {launched} frontier launches, 0 plain; equal to "
+              f"the CPU run; wall {wall:.2f} s on the card, {cpu_wall:.2f} s "
+              f"on the CPU [{card}]")
+        out["launches"] += launched
+        out["wall_s"][shape], out["cpu_wall_s"][shape] = wall, cpu_wall
+        pf = run["prefetchers"][0]
+    value, _ = pf.read((0, 0))
+    if value.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"a prefetcher read gave no tensor on {DEVICE}")
+    print(f"profile of a prefetcher's warm mine_now [{card}]:")
+    _, out["busy_share"] = profiled(torch, pf.mine_now)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1157,7 +1679,26 @@ def main(argv=None) -> int:
     # -- phase 8: flash timing at the prefill shape -----------------------
     flash = flash_timing(torch, fa_ops, fa_ref, fparity, serve_cfg, card)
 
-    # -- phase 9: the kernels line and the result -------------------------
+    # -- phase 9: the decision walk on the card ----------------------------
+    t0 = time.perf_counter()
+    decision = decision_phase(torch, core, client, stage2, card)
+    phase_s = {"decision": time.perf_counter() - t0}
+
+    # -- phase 10: the sharded cluster, its tenants mining on the card -----
+    t0 = time.perf_counter()
+    cluster = cluster_phase(torch, core, ops, ref, card)
+    phase_s["cluster"] = time.perf_counter() - t0
+
+    # -- phase 11: the expert prefetcher on the card -----------------------
+    from repro_torch import serving
+
+    t0 = time.perf_counter()
+    prefetch = prefetcher_phase(torch, core, serving, ops, ref, card)
+    phase_s["prefetcher"] = time.perf_counter() - t0
+    print("new phases' seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in phase_s.items()))
+
+    # -- phase 12: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -1178,6 +1719,16 @@ def main(argv=None) -> int:
             **{key: t[key] for key in t if key not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "shape")},
         })
+    # the frontier kernel also carries the cluster's and the prefetchers'
+    # mines
+    kernels[0].update(
+        cluster_launches=cluster["launches"],
+        prefetcher_launches=prefetch["launches"],
+        cluster_mine_all_s=cluster["mine_s"],
+        cluster_mine_all_cpu_s=cluster["cpu_mine_s"],
+        cluster_warm_mine_busy_share=cluster["busy_share"],
+        prefetcher_walls_s=prefetch["wall_s"],
+        prefetcher_mine_busy_share=prefetch["busy_share"])
     # the tensor-core kernel is the serve path's; the split-TF32 one runs
     # the f32 check of phase 7
     flash_paths = {"tensor_core": ("serve", serve_counts["kernel"]),
@@ -1201,6 +1752,9 @@ def main(argv=None) -> int:
             **({"ffma_bound_ms": t["ffma_bound_ms"]}
                if "ffma_bound_ms" in t else {}),
         })
+    d112 = flash["tf32x3_d112"]
+    kernels[-1].update({f"d112_{key}": d112[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_share", "shape")})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,37 @@
 """PALPATINE core on PyTorch: the single client's main path.
 
 The counterpart of ``src/repro/core``: frequent-sequence mining with the
-bitmaps on the device, probabilistic trees, prefetching heuristics, the
-two-space cache and the simulated back store.  The sharded cluster,
-membership, chaos and versioned replicas are not ported yet.
+bitmaps on the device, probabilistic trees, prefetching heuristics (the
+decision engine's ``backend="torch"`` walks on the device), the two-space
+cache, the simulated back store, and the sharded cluster (membership,
+chaos and versioned replicas) whose tenants mine on the device.
 """
 
 from .api import Client
 from .backstore import Channel, Clock, LatencyModel, RPCFuture, SimulatedDKVStore
 from .cache import CacheStats, TwoSpaceCache
+from .chaos import ChaosEngine, ChaosSchedule, Fault
+from .cluster import (
+    ClusterBaseline,
+    ClusterClient,
+    ClusterConfig,
+    PatternExchange,
+    ShardedDKVStore,
+    ShardedTwoSpaceCache,
+    VerdictExchange,
+)
 from .decision import VectorizedPrefetchEngine, build_engine
 from .heuristics import HEURISTICS, HeuristicConfig, PrefetchEngine
+from .membership import (
+    BudgetRebalancer,
+    FailureDetector,
+    HintedHandoffLog,
+    LeaseConflict,
+    LeaseTable,
+    MembershipEvent,
+    MoveReport,
+    RangeLease,
+)
 from .metastore import PatternMetastore, VerdictBoard
 from .obs import (
     NULL_TRACER,
@@ -26,6 +47,7 @@ from .obs import (
     percentile,
     span_kind_breakdown,
 )
+from .versions import DottedVersion, concurrent, descends, merge
 from .mining import (
     ALGORITHMS,
     BITMAP_ALGOS,
@@ -44,15 +66,20 @@ from .sessions import AccessLogger, Container, SequenceDatabase
 
 __all__ = [
     "AccessLogger", "ALGORITHMS", "AttributionTable", "BITMAP_ALGOS",
-    "BaselineClient", "CacheStats", "Channel", "Client", "Clock",
-    "Container", "FlatForest", "HEURISTICS", "HeuristicConfig",
-    "Histogram", "LatencyModel", "MetricsRegistry", "MiningParams",
-    "NULL_TRACER", "NullTracer", "PalpatineClient", "PalpatineConfig",
-    "Pattern", "PatternMetastore", "PrefetchCause", "PrefetchEngine",
-    "PTree", "PTreeIndex", "RPCFuture", "SequenceDatabase",
-    "SimulatedDKVStore", "Span", "Tracer", "TwoSpaceCache",
-    "VectorizedPrefetchEngine", "VerdictBoard", "VerticalBitmaps",
-    "bitmaps_from_numpy", "brute_force", "build_engine", "critical_path",
-    "dynamic_floor_count", "latency_percentiles", "mine",
-    "mine_dynamic_minsup", "percentile", "span_kind_breakdown",
+    "BaselineClient", "BudgetRebalancer", "CacheStats", "Channel",
+    "ChaosEngine", "ChaosSchedule", "Client", "Clock", "ClusterBaseline",
+    "ClusterClient", "ClusterConfig", "Container", "DottedVersion",
+    "FailureDetector", "Fault", "FlatForest", "HEURISTICS",
+    "HeuristicConfig", "HintedHandoffLog", "Histogram", "LatencyModel",
+    "LeaseConflict", "LeaseTable", "MembershipEvent", "MetricsRegistry",
+    "MiningParams", "MoveReport", "NULL_TRACER", "NullTracer",
+    "PalpatineClient", "PalpatineConfig", "Pattern", "PatternExchange",
+    "PatternMetastore", "PrefetchCause", "PrefetchEngine", "PTree",
+    "PTreeIndex", "RangeLease", "RPCFuture", "SequenceDatabase",
+    "ShardedDKVStore", "ShardedTwoSpaceCache", "SimulatedDKVStore", "Span",
+    "Tracer", "TwoSpaceCache", "VectorizedPrefetchEngine", "VerdictBoard",
+    "VerdictExchange", "VerticalBitmaps", "bitmaps_from_numpy",
+    "brute_force", "build_engine", "concurrent", "critical_path",
+    "descends", "dynamic_floor_count", "latency_percentiles", "merge",
+    "mine", "mine_dynamic_minsup", "percentile", "span_kind_breakdown",
 ]

@@ -25,14 +25,20 @@ node) dedupe at open, depth-0 refusal) is bug-for-bug identical to the
 scalar oracle; ``tests/test_decision.py`` pins the two engines
 differentially across the heuristic × workload grid.
 
-Copied from ``src/repro/core/decision.py`` with the numpy backend only:
-the ``backend="jax"`` twin is not ported, so the walk stays on the host.
+``backend="torch"`` routes the advance + wave selection through the
+device twin in :mod:`repro_torch.kernels.decision_walk` on ``device``
+(default the card); the numpy path is the default, as in the reference,
+and the one the clients use.
+
+Copied from ``src/repro/core/decision.py``; its ``backend="jax"`` is the
+port's ``backend="torch"``, with a ``device``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..device import resolve_device
 from .heuristics import HeuristicConfig, PrefetchEngine
 from .obs import PrefetchCause
 from .ptree import FlatForest, PTreeIndex
@@ -111,15 +117,22 @@ class VectorizedPrefetchEngine:
     (differentially pinned), one array program per request."""
 
     def __init__(self, index: PTreeIndex, cfg: HeuristicConfig,
-                 max_contexts: int = 256):
+                 max_contexts: int = 256, backend: str = "numpy",
+                 device=None):
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"unknown decision backend {backend!r}")
         self.cfg = cfg
         self.max_contexts = max_contexts
+        self.backend = backend
+        #: where the torch backend's forest lives (unused by numpy)
+        self.device = resolve_device(device) if backend == "torch" else None
         self._progressive = cfg.name == "fetch_progressive"
         self._p_depth = cfg.progressive_depth
         m = max_contexts
         self._node = np.zeros(m, np.int64)
         self._tree = np.zeros(m, np.int64)
-        self._n = 0
+        self._fetched = np.zeros(m, np.int64)   # torch path only (numpy
+        self._n = 0                             # waves don't need it)
         self._op = 0
         # Palpascope attribution: when enabled, ``on_request`` also
         # records the forest node id behind each emitted item so
@@ -147,6 +160,9 @@ class VectorizedPrefetchEngine:
         self.flat = index.flatten()
         self._n = 0
         self._precompute_waves()
+        if self.backend == "torch":
+            from ..kernels.decision_walk import ops as _ops
+            self._dev_forest = _ops.device_forest(self.flat, self.device)
 
     def _precompute_waves(self) -> None:
         flat, cfg = self.flat, self.cfg
@@ -155,6 +171,7 @@ class VectorizedPrefetchEngine:
         if T == 0:
             self._wave_off = np.zeros(1, np.int64)
             self._wave_nodes = np.empty(0, np.int64)
+            self._init_fetched = np.empty(0, np.int64)
             return
         if cfg.name == "fetch_all":
             a, b = ts + 1, te            # every non-root node, level order
@@ -166,11 +183,14 @@ class VectorizedPrefetchEngine:
             hi = np.minimum(self._p_depth, flat.tree_max_depth)
             a, b = flat.level_band(np.arange(T, dtype=np.int64),
                                    np.ones(T, np.int64), hi)
+            self._init_fetched = hi
             self._precompute_advancement()
         nodes, cnt = _ranges_concat(a, b)
         self._wave_nodes = nodes
         self._wave_off = np.concatenate(
             [np.zeros(1, np.int64), np.cumsum(cnt)])
+        if cfg.name == "fetch_all":
+            self._init_fetched = flat.tree_max_depth
 
     def _precompute_advancement(self) -> None:
         """Per-node advancement waves, exact by invariant: a context's
@@ -248,6 +268,7 @@ class VectorizedPrefetchEngine:
         cnts = np.bincount(flat.tree_of[sel], minlength=flat.n_trees)
         self._wave_off = np.concatenate(
             [np.zeros(1, np.int64), np.cumsum(cnts)]).astype(np.int64)
+        self._init_fetched = flat.tree_max_depth
 
     # ------------------------------------------------------------------
     def _advance(self, item: int) -> tuple[list[np.ndarray],
@@ -259,6 +280,25 @@ class VectorizedPrefetchEngine:
         n = self._n
         flat = self.flat
         nodes, trees = self._node[:n], self._tree[:n]
+        if self.backend == "torch":
+            from ..kernels.decision_walk import ops as _ops
+            st = _ops.decision_walk(
+                self._dev_forest, flat, nodes, trees, self._fetched[:n],
+                item, self._p_depth, max_contexts=self.max_contexts)
+            parts: list[np.ndarray] = []
+            nparts: list[np.ndarray] = []
+            if len(st["wave_nodes"]):
+                wn = np.asarray(st["wave_nodes"])
+                parts.append(flat.items[wn])
+                if self.attribute:
+                    nparts.append(wn)
+            keep = st["alive"]
+            k = int(keep.sum())
+            self._node[:k] = st["nodes"][keep]
+            self._tree[:k] = trees[keep]
+            self._fetched[:k] = st["fetched"][keep]
+            self._n = k
+            return parts, nparts
         # numpy fast path: one searchsorted advances every context; the
         # wave is a precomputed CSR slice per advanced-onto node (see
         # _precompute_advancement for why that is exact, not a cache)
@@ -333,12 +373,13 @@ class VectorizedPrefetchEngine:
                         # confirmed is always the oldest list position —
                         # the scalar oracle's explicit stamp argmin
                         # resolves to index 0 for the same reason.
-                        for arr in (self._node, self._tree):
+                        for arr in (self._node, self._tree, self._fetched):
                             arr[:self._n - 1] = arr[1:self._n].copy()
                         self._n -= 1
                     i = self._n
                     self._node[i] = root_id
                     self._tree[i] = t
+                    self._fetched[i] = self._init_fetched[t]
                     self._n = i + 1
         if not parts:
             self._last_nodes = None
@@ -378,9 +419,11 @@ class VectorizedPrefetchEngine:
 
 
 def build_engine(index: PTreeIndex, cfg: HeuristicConfig,
-                 max_contexts: int = 256, use_vectorized: bool = True):
+                 max_contexts: int = 256, use_vectorized: bool = True,
+                 backend: str = "numpy", device=None):
     """Engine factory the clients share: the vectorized array walk by
     default, the scalar oracle when ``use_vectorized=False``."""
     if use_vectorized:
-        return VectorizedPrefetchEngine(index, cfg, max_contexts)
+        return VectorizedPrefetchEngine(index, cfg, max_contexts,
+                                        backend=backend, device=device)
     return PrefetchEngine(index, cfg, max_contexts)

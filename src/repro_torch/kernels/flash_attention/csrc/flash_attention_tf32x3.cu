@@ -1,7 +1,9 @@
 // Forward flash attention for Hopper (sm_90a) on the tensor cores in split
 // TF32, bound to Python through ctypes: the route of float32 at every
-// head_dim and of bfloat16 at head_dim 16 and 32.  bfloat16 at 64 and 128
-// runs on flash_attention_wgmma.cu.
+// head_dim and of bfloat16 at every head_dim but 64 and 128, which run on
+// flash_attention_wgmma.cu.  It is instantiated at every multiple of 16 up
+// to 128, in both types; the wrapper zero-pads a head_dim between them up
+// to the next one (QK^T reads 16 head_dim columns at a time).
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
 // src/repro/kernels/flash_attention/flash_attention.py, and computes what
@@ -42,7 +44,7 @@
 // Design: one block of 4 warps per 64-row q tile, on a 1-D grid with q
 // tiles fastest within a head (the heavy causal tiles first), so a head's
 // K and V stay in L2 over its q tiles.  Each warp owns 16 q rows.  The q
-// tile stays in shared memory; K and V tiles of kBlockK rows (32 at D 128,
+// tile stays in shared memory; K and V tiles of kBlockK rows (32 past D 64,
 // else 64) are loaded with cp.async, 16 bytes where the bases and strides
 // allow, else 4 (a bfloat16 tile is converted on a plain load), into two
 // stages, so tile t+1 loads while tile t is used.  S = QK^T stays in
@@ -78,7 +80,9 @@ struct Strides {
 
 template <int D>
 struct Tile {
-  static constexpr int kBlockK = D == 128 ? 32 : 64;
+  // 32 keys past D 64: with 64 at D 112 the two stages would take 143 KB
+  // and leave one block (4 warps) an SM
+  static constexpr int kBlockK = D > 64 ? 32 : 64;
   // q and k rows are read 16 bytes a thread, a quarter warp at a time
   // over two rows: a row stride of 16 mod 32 words keeps those apart
   static constexpr int kQKRow = D % 32 == 16 ? D : D + 16;
@@ -183,8 +187,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);       // round to nearest even, as astype does
 }
 
-// two blocks an SM: shared memory allows it at every D (107,520 bytes at
-// D 128)
+// two blocks an SM: shared memory allows it at every D (at most 107,520
+// bytes, at D 128)
 template <typename T, int D, bool kVec16>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_tf32x3_kernel(const T* __restrict__ q,
@@ -431,27 +435,29 @@ cudaError_t launch_vec(bool vec16, const void* q, const void* k,
                              Lk, causal, scale_log2, stream);
 }
 
-// float32 at D 16, 32, 64 and 128; bfloat16 at D 16 and 32 only
+// every multiple of 16 up to 128, in float32 and bfloat16 (bfloat16 at 64
+// and 128 is the tensor-core route's, and here serves a padded head_dim)
 template <typename T>
 cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
                        const void* v, void* out, Strides qs, Strides ks,
                        Strides vs, Strides os, int B, int Hq, int Hkv, int Lq,
                        int Lk, int causal, float scale_log2,
                        cudaStream_t stream) {
-  if (D == 16)
-    return launch_vec<T, 16>(vec16, q, k, v, out, qs, ks, vs, os, B, Hq, Hkv,
-                             Lq, Lk, causal, scale_log2, stream);
-  if (D == 32)
-    return launch_vec<T, 32>(vec16, q, k, v, out, qs, ks, vs, os, B, Hq, Hkv,
-                             Lq, Lk, causal, scale_log2, stream);
-  if constexpr (std::is_same<T, float>::value) {
-    if (D == 64)
-      return launch_vec<T, 64>(vec16, q, k, v, out, qs, ks, vs, os, B, Hq,
-                               Hkv, Lq, Lk, causal, scale_log2, stream);
-    if (D == 128)
-      return launch_vec<T, 128>(vec16, q, k, v, out, qs, ks, vs, os, B, Hq,
-                                Hkv, Lq, Lk, causal, scale_log2, stream);
+#define FA_HEAD_DIM(DIM)                                                     \
+  case DIM:                                                                  \
+    return launch_vec<T, DIM>(vec16, q, k, v, out, qs, ks, vs, os, B, Hq,    \
+                              Hkv, Lq, Lk, causal, scale_log2, stream);
+  switch (D) {
+    FA_HEAD_DIM(16)
+    FA_HEAD_DIM(32)
+    FA_HEAD_DIM(48)
+    FA_HEAD_DIM(64)
+    FA_HEAD_DIM(80)
+    FA_HEAD_DIM(96)
+    FA_HEAD_DIM(112)
+    FA_HEAD_DIM(128)
   }
+#undef FA_HEAD_DIM
   return cudaErrorInvalidValue;
 }
 
@@ -465,8 +471,8 @@ bool aligned16(const void* p, const Strides& s) {
 extern "C" {
 
 // Returns the CUDA error of the launch (0 on success); the kernel runs
-// asynchronously on `stream` of card `device`.  dtype: 0 float32 (D 16,
-// 32, 64 or 128), 1 bfloat16 (D 16 or 32); q, k, v and out alike.
+// asynchronously on `stream` of card `device`.  dtype: 0 float32, 1
+// bfloat16, q, k, v and out alike; D a multiple of 16 up to 128.
 // Strides are in elements, in the order (batch, head, position) for q, k,
 // v and out; head_dim is contiguous.  B * Hq, Lq and Lk must be positive.
 // float32 q, k and v are copied 16 bytes at a time when each base is

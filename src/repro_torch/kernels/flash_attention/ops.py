@@ -15,19 +15,23 @@ a call takes from its dtype and head_dim alone:
   the tensor cores, TMA loads.  It reads its inputs through TMA tensor
   maps, so each base must be 16-byte aligned and each stride a positive
   multiple of 16 bytes; the wrapper raises ``ValueError`` otherwise.
-* ``"tf32x3"``: float32 at every head_dim, and bfloat16 at 16 or 32,
-  ``csrc/flash_attention_tf32x3.cu``: ``mma.sync`` on the tensor cores in
-  split TF32, each f32 operand split into a TF32 high and low part and
-  each product the sum of three TF32 products, which keeps f32 accuracy
-  (a bfloat16 operand is exact in TF32 and is not split).  It takes any
-  base and strides, copying 16 bytes at a time where they allow.
+* ``"tf32x3"``: float32 at every head_dim, and bfloat16 at every head_dim
+  but 64 and 128, ``csrc/flash_attention_tf32x3.cu``: ``mma.sync`` on the
+  tensor cores in split TF32, each f32 operand split into a TF32 high and
+  low part and each product the sum of three TF32 products, which keeps
+  f32 accuracy (a bfloat16 operand is exact in TF32 and is not split).  It
+  takes any base and strides, copying 16 bytes at a time where they allow.
+  It is instantiated at the head_dims of :data:`HEAD_DIMS`; a head_dim
+  between them runs on a zero-padded copy of q, k and v (zero columns add
+  nothing to q.k and give zero output columns), and one past
+  :data:`MAX_HEAD_DIM` raises ``ValueError`` on a card.
 
 Each kernel takes its tensors' (batch, head, position) strides and needs
 only the head_dim to be contiguous, so a transposed view of the model's
 (B, S, H, D) activations goes in without a copy; the result is a
 (B, Hq, Lq, D) view of a (B, Lq, Hq, D) buffer, which the model turns
 back into (B, S, H, D) for free.  Masking of ragged lengths happens in
-the kernels: nothing is padded.
+the kernels: no length is padded.
 
 ``counts`` holds the kernel launches since the last reset: the wrapper
 adds one to ``"flash_attention"`` and one to its route's count where it
@@ -46,8 +50,8 @@ from .. import _build
 from .._launch import launch_args, on_cpu
 from . import ref
 
-__all__ = ["flash_attention", "counts", "load", "route", "HEAD_DIMS",
-           "ROUTES"]
+__all__ = ["flash_attention", "counts", "load", "route", "kernel_head_dim",
+           "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -70,8 +74,10 @@ _LIBRARIES = {
         "flash_attention_wgmma_smem_bytes": [_I]}),
 }
 ROUTES = tuple(_LIBRARIES)
-#: head_dims the kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head_dims the split-TF32 kernel is instantiated for, in both dtypes:
+#: its QK^T reads 16 head_dim columns at a time
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _TENSOR_CORE_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_Q = {"tf32x3": 64, "tensor_core": 128}   # q rows per block
@@ -119,8 +125,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[1] == 0 or hq % k.shape[1]:
         raise ValueError(f"q heads {hq} are not a multiple of kv heads "
                          f"{k.shape[1]}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
     if route(q.dtype, d) == "tensor_core":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % _TMA_ALIGN:
@@ -134,6 +138,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                                  f"positive multiples of {_TMA_ALIGN} bytes, "
                                  f"as the tensor-core kernel's TMA loads "
                                  f"need")
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head_dim of the kernel a call of head_dim ``d`` launches: ``d``
+    rounded up to a multiple of 16.  Raises ``ValueError`` outside 1 to
+    :data:`MAX_HEAD_DIM`."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} is outside the kernels' 1 to "
+                         f"{MAX_HEAD_DIM}")
+    return -(-d // 16) * 16
 
 
 def _check_grid(which: str, b: int, hq: int, lq: int) -> None:
@@ -160,15 +174,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Forward GQA attention with f32 scores and accumulation and an
     end-aligned causal mask (row r sees columns <= r + Lk - Lq); a row that
     sees no column gives 0.  ``sm_scale`` defaults to ``D ** -0.5``.
-    float32 or bfloat16; head_dim one of :data:`HEAD_DIMS`."""
+    float32 or bfloat16; any head_dim on the CPU, 1 to
+    :data:`MAX_HEAD_DIM` on a card."""
     _check(q, k, v)
     if on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     which = route(q.dtype, d)
+    dk = kernel_head_dim(d)
     if sm_scale is None:
-        sm_scale = d ** -0.5
+        sm_scale = d ** -0.5    # the true head_dim's, not the padded one
     out = torch.empty((b, lq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
@@ -176,15 +192,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if lk == 0:                 # every row sees nothing
         return out.zero_()
     _check_grid(which, b, hq, lq)
+    res = out
+    if dk != d:                 # the split-TF32 route only
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
+        res = torch.empty((b, lq, hq, dk), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
     dev, stream = launch_args(q)
     if which == "tensor_core" and sm_scale <= 0:
         # the kernel folds a positive scale into its exp2; the same scores
         # come from (sign * q) . k * |scale|, and a zero scale from q = 0
         q = q.neg() if sm_scale < 0 else torch.zeros_like(q)
         sm_scale = -sm_scale if sm_scale < 0 else 1.0
-    ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    rest = [b, hq, hkv, lq, lk, d, int(causal), float(sm_scale),
-            *(s for t in (q, k, v, out) for s in _strides(t)), dev, stream]
+    ptrs = [t.data_ptr() for t in (q, k, v, res)]
+    rest = [b, hq, hkv, lq, lk, dk, int(causal), float(sm_scale),
+            *(s for t in (q, k, v, res) for s in _strides(t)), dev, stream]
     if which == "tf32x3":
         err = load(which).flash_attention_tf32x3_launch(
             *ptrs, _DTYPES[q.dtype], *rest)
@@ -195,6 +216,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{_describe(err)}")
     counts["flash_attention"] += 1
     counts[which] += 1
+    if res is not out:
+        out.copy_(res[..., :d])
     return out
 
 

@@ -86,11 +86,12 @@ class ServingEngine:
         gen = torch.Generator(device=self.device).manual_seed(self.scfg.seed)
         out = []
         t0 = _telemetry_clock()
-        for i in range(new_tokens):
+        # new_tokens decode steps, as the reference times them: the last
+        # one's logits go unused
+        for _ in range(new_tokens):
             tok = self._sample(logits, gen)
             out.append(tok)
-            if i + 1 < new_tokens:   # the last token needs no logits
-                logits, cache = decode_step(self.cfg, self.model, cache, tok)
+            logits, cache = decode_step(self.cfg, self.model, cache, tok)
         result = (torch.cat(out, dim=1) if out else
                   torch.empty((b, 0), dtype=torch.int64, device=self.device))
         result = result.to(torch.int32).cpu().numpy()

@@ -330,3 +330,108 @@ def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
         "flash_attention": cfg.n_layers, "tensor_core": cfg.n_layers,
         "tf32x3": 0}
     assert fa_ref.counts == before[1]
+
+
+#: head_dims of the split-TF32 kernel beyond 16/32/64/128: its new
+#: instantiations (48, 80, 96, 112: zamba2-7b's) and head_dims it reaches
+#: by zero padding (1, 40, 57, 72, 100, 113, 127)
+ANY_D = [1, 40, 48, 57, 72, 80, 96, 100, 112, 113, 127]
+
+
+@pytest.mark.parametrize("d", ANY_D)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_tf32x3_kernel_takes_any_head_dim(card, no_tf32, d, causal, dtype):
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype) for s in ((2, 4, 90, d), (2, 2, 130, d),
+                                            (2, 2, 130, d)))
+    assert fa_ops.route(dtype, d) == "tf32x3"
+    before = fa_ops.counts["tf32x3"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["tf32x3"] == before + 1
+    want = fa_ref.flash_attention(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_smallest_head_dim_112_input_on_the_card(card, no_tf32):
+    q, k, v = (torch.from_numpy(np.random.default_rng(112).standard_normal(
+        (1, 1, 1, 112)).astype(np.float32)).cuda() for _ in range(3))
+    torch.testing.assert_close(fa_ops.flash_attention(q, k, v),
+                               fa_ref.flash_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_head_dim_past_the_kernels_raises_on_the_card(card):
+    q = torch.zeros((1, 2, 8, 144), device="cuda")
+    before = dict(fa_ops.counts)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q, q)
+    assert fa_ops.counts == before
+
+
+def test_torch_decision_engine_on_the_card_equals_numpy(card):
+    """The ``"torch"`` backend walking on the card, in lockstep with the
+    numpy engine over the chain forest and a noisy stream."""
+    from repro_torch import core
+
+    index = chip_smoke.chain_forest(core, 16, 80)
+    rng = np.random.default_rng(0)
+    stream = [int(x) for x in rng.integers(-2, 100, size=200)] + \
+        list(range(80))
+    for name in ("fetch_all", "fetch_top_n", "fetch_progressive"):
+        cfg = core.HeuristicConfig(name, top_n=3, progressive_depth=3)
+        a = core.VectorizedPrefetchEngine(index, cfg, 32)
+        b = core.VectorizedPrefetchEngine(index, cfg, 32, backend="torch")
+        assert b._dev_forest.items.device.type == "cuda"
+        for item in stream:
+            assert a.on_request(item) == b.on_request(item), (name, item)
+            assert a.n_live == b.n_live
+
+
+def test_cluster_tenants_mine_on_the_card_as_on_the_cpu(card):
+    """Two tenants over 4 shards, 60 transactions a stage: the card's
+    mines launch the frontier kernel and give the CPU's run."""
+    from repro_torch import core
+
+    gen = chip_smoke.TPCC(chip_smoke.TPCCConfig())
+
+    def run(device):
+        store = core.ShardedDKVStore(4)
+        store.load(gen.dataset())
+        cluster = core.ClusterClient(store, core.ClusterConfig(
+            n_clients=2, palpatine=chip_smoke.cluster_config(core)),
+            device=device)
+        cluster.run(chip_smoke.tenant_streams(gen, 2, 60, seed=3))
+        before = dict(ops.counts), dict(ref.counts)
+        cluster.mine_all()
+        launched = (ops.counts["frontier_join_support"]
+                    - before[0]["frontier_join_support"])
+        plain = {n: ref.counts[n] - before[1][n] for n in ref.counts}
+        cluster.exchange_patterns()
+        cluster.reset_stats()
+        lats = cluster.run(chip_smoke.tenant_streams(gen, 2, 60, seed=7))
+        return (lats, cluster.aggregate_stats(),
+                [(p.items, p.support) for p in cluster.exchange.col_store],
+                launched, plain)
+
+    card_run, cpu_run = run("cuda"), run("cpu")
+    assert card_run[3] > 0 and not any(card_run[4].values())
+    assert card_run[:3] == cpu_run[:3]
+
+
+def test_expert_prefetcher_on_the_card_as_on_the_cpu(card):
+    from repro_torch import core, serving
+
+    on_card = chip_smoke.prefetcher_loop(core, serving, "steady", True, 0,
+                                         device="cuda")
+    value, _ = on_card["prefetchers"][0].read((0, 0))
+    assert isinstance(value, torch.Tensor) and value.device.type == "cuda"
+    on_cpu = chip_smoke.prefetcher_loop(core, serving, "steady", True, 0,
+                                        device="cpu")
+    for key in ("lats", "mined", "stats", "exchanged"):
+        assert on_card[key] == on_cpu[key], key

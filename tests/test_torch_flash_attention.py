@@ -131,6 +131,62 @@ def test_empty_kv_gives_zeros():
     assert out.shape == q.shape and not out.any()
 
 
+#: head_dims the JAX kernel computes and the split-TF32 kernel reaches by
+#: zero padding (40, 72) or by its own instantiation (80, 96, 112: the
+#: last is zamba2-7b's)
+ANY_D = [40, 72, 80, 96, 112]
+
+
+@pytest.mark.parametrize("d", ANY_D)
+@pytest.mark.parametrize("causal", [True, False])
+def test_any_head_dim_matches_jax_kernel(d, causal):
+    """The reference takes any head_dim; so does the port (on the CPU its
+    plain version, on a card the split-TF32 kernel)."""
+    q, k, v = qkv(np.random.default_rng(d), 1, 4, 2, 96, 96, d)
+    np.testing.assert_allclose(port(q, k, v, causal=causal),
+                               jax_kernel(q, k, v, causal=causal),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_smallest_head_dim_112_input_matches_jax_kernel():
+    """q, k and v of shape (1, 1, 1, 112): the smallest input the port
+    refused before it took every head_dim."""
+    q, k, v = qkv(np.random.default_rng(112), 1, 1, 1, 1, 1, 112)
+    np.testing.assert_allclose(port(q, k, v), jax_kernel(q, k, v),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (40, 48), (72, 80),
+                                    (112, 112), (113, 128), (128, 128)])
+def test_kernel_head_dim(d, want):
+    """A card call runs the instantiation at ``d`` rounded up to 16."""
+    assert ops.kernel_head_dim(d) == want
+    assert want in ops.HEAD_DIMS
+
+
+@pytest.mark.parametrize("d", [0, 129, 256])
+def test_kernel_head_dim_outside_the_kernels_raises(d):
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.kernel_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [40, 72, 112])
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_padding_to_the_kernel_head_dim_changes_nothing(d, causal):
+    """What the card path computes for such a D: the function on copies
+    zero-padded to ``kernel_head_dim(D)``, scaled by the true D's
+    ``D ** -0.5``, then cut back to D columns."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(
+        np.random.default_rng(d + 1), 1, 4, 2, 50, 70, d))
+    dk = ops.kernel_head_dim(d)
+    padded = [torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v)]
+    got = ref.flash_attention(*padded, causal=causal, sm_scale=d ** -0.5)
+    assert not got[..., d:].any()
+    torch.testing.assert_close(got[..., :d],
+                               ref.flash_attention(q, k, v, causal=causal),
+                               rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_route(dtype, head_dim):
@@ -203,7 +259,6 @@ def test_cuda_core_route_takes_unaligned_inputs(dtype, d):
 @pytest.mark.parametrize("case,exc", [
     ("float16", TypeError),
     ("mixed_dtypes", TypeError),
-    ("head_dim_48", ValueError),
     ("rank_3", ValueError),
     ("head_dim_strided", ValueError),
     ("heads_not_multiple", ValueError),
@@ -218,8 +273,6 @@ def test_wrapper_rejects(case, exc):
         q, k, v = q.half(), k.half(), v.half()
     elif case == "mixed_dtypes":
         q = q.to(torch.bfloat16)
-    elif case == "head_dim_48":
-        q, k, v = (torch.zeros(t.shape[:3] + (48,)) for t in (q, k, v))
     elif case == "rank_3":
         q = q[0]
     elif case == "head_dim_strided":

@@ -24,7 +24,12 @@ import json, sys
 import repro_torch, repro_torch.core
 import repro_torch.kernels.bitmap_support.ops
 import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.decision_walk.ops
+import repro_torch.kernels.decision_walk.ref
+import repro_torch.core.cluster, repro_torch.core.membership
+import repro_torch.core.chaos, repro_torch.core.versions
 import repro_torch.configs, repro_torch.models, repro_torch.serving
+import repro_torch.serving.loadgen, repro_torch.serving.prefetcher
 import repro_torch.launch.serve
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
@@ -70,4 +75,11 @@ def test_scan_covers_the_port():
             port + "models/layers.py", port + "models/attention.py",
             port + "models/transformer.py", port + "models/convert.py",
             port + "models/io.py", port + "serving/engine.py",
-            port + "launch/serve.py"} <= rel
+            port + "launch/serve.py",
+            port + "kernels/decision_walk/decision_walk.py",
+            port + "kernels/decision_walk/ops.py",
+            port + "kernels/decision_walk/ref.py",
+            port + "core/cluster.py", port + "core/membership.py",
+            port + "core/chaos.py", port + "core/versions.py",
+            port + "serving/loadgen.py",
+            port + "serving/prefetcher.py"} <= rel

@@ -70,6 +70,30 @@ def test_greedy_generate_equals_jax_engine(pair):
     assert ops.counts == before[1]
 
 
+def test_generate_times_new_tokens_decode_steps(pair, monkeypatch):
+    """As the reference's engine, ``generate`` runs one decode step per new
+    token, the last one's logits unused, and ``decode_s`` covers them
+    all; prompt + new tokens may fill ``max_len`` exactly."""
+    from repro_torch.serving import engine as engine_mod
+
+    jcfg, params, tcfg, model = pair
+    p = prompts(4, 2, 24, tcfg.vocab_size)
+    want = JaxServingEngine(jcfg, params, JaxServeConfig(max_len=32)
+                            ).generate(p, 8)
+    steps = []
+
+    def counted(*args, **kw):
+        steps.append(args[2]["pos"])
+        return decode_step(*args, **kw)
+
+    monkeypatch.setattr(engine_mod, "decode_step", counted)
+    eng = ServingEngine(tcfg, model, ServeConfig(max_len=32), device="cpu")
+    got = eng.generate(p, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert steps == list(range(24, 32))
+    assert eng.stats["tokens"] == 16 and eng.stats["decode_s"] > 0
+
+
 def test_prefill_logits_and_cache_equal_jax(pair):
     jcfg, params, tcfg, model = pair
     p = prompts(1, 2, 24, tcfg.vocab_size)
