@@ -27,8 +27,9 @@ Phases, in order; any failure exits non-zero and none is caught:
    against their plain version on the grids of ``tests/test_kernels.py``
    and more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
    Lq < Lk = 513, GQA 56/8, MQA) and the split-TF32 kernel's head_dims
-   40, 48, 72, 80, 96 and 112 (zamba2-7b's; 40 and 72 zero-padded), f32
-   within 2e-5 with TF32 off and bf16 within 2e-2.
+   40, 48, 72, 80, 96 and 112 (zamba2-7b's; 40 and 72 zero-padded) and,
+   past 128, 144, 160, 176, 192, 200, 224, 240 and 256 (200
+   zero-padded), f32 within 2e-5 with TF32 off and bf16 within 2e-2.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
@@ -62,7 +63,9 @@ Phases, in order; any failure exits non-zero and none is caught:
    at the prefill shape, beside the card's bound: the tensor-core kernel
    in bf16, the split-TF32 kernel in f32 (bound: three TF32 products a
    product at 495 TFLOP/s, with the f32 FMA bound beside it), and the
-   split-TF32 kernel in f32 at head_dim 112.
+   split-TF32 kernel in f32 at head_dims 112 and 256; in bf16, the share
+   of outputs the tensor-core kernel rounds unlike the plain version, and
+   its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``).
 9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
    with the numpy engine over the SEQB client's index and the stage-2
    requests, for each heuristic (equal waves at every op); the per-op
@@ -79,7 +82,24 @@ Phases, in order; any failure exits non-zero and none is caught:
    tenant mining on the card (frontier kernel only, ``ExpertStore``
    decoding to CUDA tensors), its statistics equal to the same loop on
    the CPU; one profile of a prefetcher's warm ``mine_now``.
-12. One JSON line describing each ported kernel, then the result line.
+12-14. The vlm, audio and moe families (llava-next-mistral-7b and
+   whisper-large-v3 at full width and depth, qwen3-moe-235b-a22b at full
+   width cut to 8 of its 94 layers), bf16 weights from seed 0 made on the
+   card, ``attention_impl="pallas"``, through the reference's model API:
+   ``make_batch`` (batch 4; vlm 1,152 patches + 896 tokens, whisper 1,500
+   frames + a 416-token prompt, moe a 2,048-token prompt), ``prefill``,
+   then 32 greedy ``decode_step``s.  Each prefill launches the
+   tensor-core flash kernel 32, 96 (32 encoder, 32 causal decoder, 32
+   cross-attention) and 8 times, never the split-TF32 one or the plain
+   version; every position's bf16 prefill logits meet phase 7's gate
+   (moe's routing freely, with the token-layers each path routes unlike
+   the reference path printed beside); at full width cut
+   to 2 layers (whisper 2 + 2) in f32, the full-sequence logits of the
+   kernel and plain paths agree within 1e-3 and their greedy tokens are
+   equal (moe: rows where a near tie of two gates routed a token to other
+   experts are counted and left out).  Warm prefill seconds, decode tok/s,
+   peak memory and one profile each of a prefill and a decode step.
+15. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -703,12 +723,16 @@ FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
 FLASH_TC_EDGES = [(1, 4, 2, 1000, 1000, 128), (1, 4, 2, 300, 100, 128),
                   (1, 2, 2, 200, 513, 128), (1, 56, 8, 300, 300, 128),
                   (2, 8, 1, 300, 300, 64), (513, 128, 8, 129, 129, 64)]
-#: the split-TF32 kernel at every head_dim it was not instantiated for
-#: before: 48, 80, 96 and 112 (zamba2-7b's) by their own instantiations,
-#: 40 and 72 zero-padded to 48 and 80; ragged 130, Lq < Lk, and GQA 8/2
-#: at 112
-FLASH_ANY_D = [(1, 2, 2, 130, 130, d) for d in (40, 48, 72, 80, 96, 112)] \
-    + [(1, 2, 2, 70, 200, 112), (2, 8, 2, 100, 100, 112)]
+#: the split-TF32 kernel at head_dims past the first four: 48, 80, 96 and
+#: 112 (zamba2-7b's) by their own instantiations, 40 and 72 zero-padded to
+#: 48 and 80; past 128, in two output chunks a q tile, 144, 160, 176,
+#: 192, 224, 240 and 256 by their own and 200 zero-padded to 208; ragged
+#: 130, Lq < Lk, and GQA 8/2 at 112 and 256
+FLASH_ANY_D = [(1, 2, 2, 130, 130, d)
+               for d in (40, 48, 72, 80, 96, 112, 144, 160, 176, 192, 200,
+                         224, 240, 256)] \
+    + [(1, 2, 2, 70, 200, 112), (2, 8, 2, 100, 100, 112),
+       (1, 2, 2, 70, 200, 256), (2, 8, 2, 100, 100, 256)]
 #: f32 with TF32 off: both sides are true f32 and differ in summation
 #: order only; bf16: one rounding of the output
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -915,21 +939,107 @@ def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
             "counts": counted}
 
 
-def serve_against_plain(torch, fa_ref, srv: dict) -> None:
-    """Phase 7, bf16 part: the first request's prefill logits and greedy
-    tokens against ``attention_impl="reference"`` on the same weights.
+def logit_stats(torch, logits, ref) -> tuple:
+    """(max abs diff, mean abs diff, share of equal argmax) of ``logits``
+    against ``ref``, and ``ref``'s std, a batch row at a time (a moe
+    prompt's full-sequence logits are 2.5 GB in bf16)."""
+    mx = total = s1 = s2 = 0.0
+    same = n = 0
+    for a, r in zip(logits, ref):
+        d = (a.float() - r.float()).abs()
+        mx = max(mx, float(d.max()))
+        total += float(d.sum(dtype=torch.float64))
+        rf = r.double()
+        s1, s2 = s1 + float(rf.sum()), s2 + float((rf * rf).sum())
+        same += int((a.argmax(-1) == r.argmax(-1)).sum())
+        n += d.numel()
+        del d, rf
+    rows = n // logits.shape[-1]
+    std = ((s2 - s1 * s1 / n) / (n - 1)) ** 0.5
+    return mx, total / n, same / rows, std
+
+
+def routing_flips(calls: list, ref_calls: list) -> int:
+    """Token-layers whose experts differ between two recorded paths."""
+    return sum(int((e != er).any(dim=-1).sum())
+               for (e, _, _), (er, _, _) in zip(calls, ref_calls))
+
+
+def bf16_logits_gate(torch, fa_ref, cfg, model, batch: dict,
+                     max_len: int, what: str, full: bool = False) -> dict:
+    """The bf16 prefill logits of the kernel path against
+    ``attention_impl="reference"`` on the same weights and batch: the last
+    position's (``prefill``), or, with ``full``, every position's
+    (``forward``).
 
     bf16 rounds each layer's attention output, so two correct attention
-    paths end 32 layers later a few bf16 ulps of logit apart.  The floor
+    paths end many layers later a few bf16 ulps of logit apart.  The floor
     of that noise is measured on the card by running the same model with
     the kernel's plain version (the same function in plain PyTorch) in
     the kernel's place.  The kernel path passes when its mean deviation
     from the reference path is within 1.1 times the floor's, and its
     largest within 5% of the logits' standard deviation or within 1.5
-    times the floor's largest."""
+    times the floor's largest.
+
+    A moe router is discrete: where two gates nearly tie, a path's
+    rounding sends a token to other experts, and the logits then differ
+    by those experts' outputs.  The gate holds moe as it holds the other
+    families, with every path routing freely; the token-layers each path
+    routes unlike the reference path are printed beside its deviations.
+    Returns the deviations (max, mean) of both paths, the logits' std and
+    the ratio of the mean deviations."""
+    import contextlib
     from unittest import mock
 
-    from repro_torch.models import attention, prefill
+    from repro_torch.models import attention, forward, moe, prefill
+
+    def logits_of(c, plain_flash: bool = False):
+        rec = RoutingRecorder(torch, moe)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(moe, "moe_route", rec))
+            if plain_flash:
+                stack.enter_context(mock.patch.object(
+                    attention, "flash_ops", types.SimpleNamespace(
+                        flash_attention=fa_ref.flash_attention)))
+            out = (forward(c, model, batch) if full
+                   else prefill(c, model, batch, max_len)[0])
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{what}: prefill logits are not finite")
+        return out, rec
+
+    plain_cfg = dataclasses.replace(cfg, attention_impl="reference")
+    lr, rec_r = logits_of(plain_cfg)
+    where = "every position's" if full else "last-position"
+    dev = {}
+    for name, plain_flash in (("kernel", False), ("floor", True)):
+        logits, rec = logits_of(cfg, plain_flash)
+        mx, mean, same, std = logit_stats(torch, logits, lr)
+        dev[name] = (mx, mean, std)
+        flips = (f", {routing_flips(rec.calls, rec_r.calls)} token-layers "
+                 f"routed unlike it" if cfg.is_moe else "")
+        print(f"{what}: bf16 {where} prefill logits, {name} path against "
+              f"the reference path: max abs diff {mx:.6f} ({mx / std:.5f} "
+              f"of the logits' std {std:.6f}), mean abs diff {mean:.6f}, "
+              f"same argmax in {same:.4f} of positions{flips}")
+        del logits
+    del lr
+    std = dev["floor"][2]
+    ratio = (dev["kernel"][1] / dev["floor"][1] if dev["floor"][1]
+             else float(dev["kernel"][1] > 0) or 1.0)
+    print(f"{what}: kernel path's mean deviation {ratio:.4f}x the floor's "
+          f"(gate 1.1x)")
+    if dev["kernel"][1] > 1.1 * dev["floor"][1] or dev["kernel"][0] > max(
+            0.05 * std, 1.5 * dev["floor"][0]):
+        raise AssertionError(f"{what}: the kernel path's logits drift from "
+                             f"the reference path's beyond bf16's floor")
+    return {"kernel": dev["kernel"][:2], "floor": dev["floor"][:2],
+            "std": std, "mean_ratio": ratio}
+
+
+def serve_against_plain(torch, fa_ref, srv: dict) -> None:
+    """Phase 7, bf16 part: the first request's prefill logits against
+    ``attention_impl="reference"`` on the same weights (the gate of
+    :func:`bf16_logits_gate`), and its greedy tokens."""
     from repro_torch.serving import ServeConfig, ServingEngine
 
     cfg, model = srv["cfg"], srv["model"]
@@ -938,29 +1048,7 @@ def serve_against_plain(torch, fa_ref, srv: dict) -> None:
     prompts = srv["requests"][0]
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                        device=DEVICE)}
-    lk = prefill(cfg, model, batch, max_len)[0].float()
-    lr = prefill(plain_cfg, model, batch, max_len)[0].float()
-    with mock.patch.object(attention, "flash_ops", types.SimpleNamespace(
-            flash_attention=fa_ref.flash_attention)):
-        lp = prefill(cfg, model, batch, max_len)[0].float()
-    for name, logits in (("kernel", lk), ("reference", lr), ("floor", lp)):
-        if not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"{name} prefill logits are not finite")
-    std = float(lr.std())
-    dev = {}
-    for name, logits in (("kernel", lk), ("floor", lp)):
-        d = (logits - lr).abs()
-        dev[name] = (float(d.max()), float(d.mean()))
-        print(f"bf16 last-position prefill logits, {name} path against the "
-              f"reference path: max abs diff {dev[name][0]:.6f} "
-              f"({dev[name][0] / std:.5f} of the logits' std {std:.6f}), "
-              f"mean abs diff {dev[name][1]:.6f}, same argmax in "
-              f"{float((logits.argmax(-1) == lr.argmax(-1)).float().mean()):.4f}"
-              f" of rows")
-    if dev["kernel"][1] > 1.1 * dev["floor"][1] or dev["kernel"][0] > max(
-            0.05 * std, 1.5 * dev["floor"][0]):
-        raise AssertionError("the kernel path's logits drift from the "
-                             "reference path's beyond bf16's floor")
+    bf16_logits_gate(torch, fa_ref, cfg, model, batch, max_len, cfg.name)
     plain = ServingEngine(plain_cfg, model, ServeConfig(max_len=max_len),
                           device=DEVICE).generate(prompts, SERVE_NEW)
     same = plain == srv["outs"][0]
@@ -1015,7 +1103,11 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     """Phase 8: each flash kernel, the plain version and SDPA at the
     prefill shape, on the model's layout ((B, S, H, D) viewed as
     (B, H, S, D)): the tensor-core route in bf16, the split-TF32 route in
-    f32 (TF32 off for the plain version and SDPA).  Returns each route's timing."""
+    f32 (TF32 off for the plain version and SDPA); the tensor-core kernel
+    also with p in fewer bf16 parts (``ops.P_PARTS``).  Returns each
+    route's timing."""
+    from unittest import mock
+
     import torch.nn.functional as F
 
     b, h, l, d = SERVE_BATCH, cfg.n_heads, SERVE_PROMPT, cfg.head_dim
@@ -1023,24 +1115,34 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # d-long dot product and a d-long weighted sum (2 FLOP a term); bytes:
     # q, k, v read once and out written once
     timing = {}
-    # the prefill shape on each route, then at zamba2-7b's head_dim 112 in
-    # f32 (the split-TF32 kernel's widest instantiation below 128)
+    # the prefill shape on each route, then in f32 at zamba2-7b's head_dim
+    # 112 and at 256, the split-TF32 kernel's widest instantiation (two
+    # output chunks a q tile, each recomputing q.k over all 256 columns;
+    # the bound counts the function's work, once)
     for dtype, peak, products, d, key in (
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, d, None),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, d,
              None),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 112,
-             "tf32x3_d112")):
+             "tf32x3_d112"),
+            (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 256,
+             "tf32x3_d256")):
         flop = 4 * b * h * d * (l * (l + 1) // 2)
         which = fa_ops.route(dtype, d)
         rng = np.random.default_rng(1)
         q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(
             np.float32)).to(DEVICE, dtype).transpose(1, 2) for _ in range(3))
         fparity.check(q, k, v, True)
+        plain = fa_ref.flash_attention(q, k, v)
         sdpa_err = float((F.scaled_dot_product_attention(q, k, v,
                                                          is_causal=True)
-                          .float() - fa_ref.flash_attention(q, k, v).float())
-                         .abs().max())
+                          .float() - plain.float()).abs().max())
+        # bf16: the share of outputs the kernel rounds unlike the plain
+        # version (f32 attention rounded once), which the logits gates see
+        rounding = (float((fa_ops.flash_attention(q, k, v) != plain)
+                          .float().mean())
+                    if dtype == torch.bfloat16 else None)
+        del plain
         qkv = (q, k, v)
         out = {
             "ms": time_ms(torch, lambda a=qkv: fa_ops.flash_attention(*a)),
@@ -1051,6 +1153,22 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
                 torch, lambda a=qkv: F.scaled_dot_product_attention(
                     *a, is_causal=True)),
         }
+        if which == "tensor_core":
+            # the same kernel with p split into fewer bf16 parts, beside it
+            out["p_parts_ms"], out["p_parts_rounding_share"] = {}, {}
+            want = fa_ref.flash_attention(q, k, v)
+            for n in range(fa_ops.P_PARTS, 0, -1):
+                with mock.patch.object(fa_ops, "P_PARTS", n):
+                    out["p_parts_rounding_share"][n] = float(
+                        (fa_ops.flash_attention(q, k, v) != want)
+                        .float().mean())
+                    out["p_parts_ms"][n] = time_ms(
+                        torch, lambda a=qkv: fa_ops.flash_attention(*a))
+                print(f"flash_attention (tensor_core) with p in {n} bf16 "
+                      f"parts: {out['p_parts_ms'][n]:.4f} ms, "
+                      f"{out['p_parts_rounding_share'][n]:.5f} of its "
+                      f"outputs round unlike the plain version's [{card}]")
+            del want
         n_bytes = 4 * b * h * l * d * q.element_size()
         out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, products * flop,
                                                     peak)
@@ -1058,7 +1176,7 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
             # the CUDA-core design's bound: f32 FMAs at 67 TFLOP/s
             out["ffma_bound_ms"] = bound_ms(n_bytes, flop)[0]
         out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
-                   dtype=str(dtype).split(".")[-1],
+                   dtype=str(dtype).split(".")[-1], rounding_share=rounding,
                    tflop_s=flop / out["ms"] / 1e9,
                    bound_share=out["bound_ms"] / out["ms"])
         print(f"flash_attention ({which}) at B {b} H {h} L {l} D {d} "
@@ -1071,7 +1189,10 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
               f"({out['bound_by']}: {products} x {flop:.4e} FLOP at "
               f"{peak:.3g} FLOP/s, {n_bytes} B)"
               + (f"; f32 FMA bound {out['ffma_bound_ms']:.4f} ms"
-                 if "ffma_bound_ms" in out else "") + f" [{card}]")
+                 if "ffma_bound_ms" in out else "")
+              + (f"; {rounding:.5f} of its bf16 outputs round unlike the "
+                 f"plain version's" if rounding is not None else "")
+              + f" [{card}]")
         timing[key or which] = out
         del q, k, v, qkv
     return timing
@@ -1309,6 +1430,284 @@ def prefetcher_phase(torch, core, serving, ops, ref, card: str) -> dict:
     print(f"profile of a prefetcher's warm mine_now [{card}]:")
     _, out["busy_share"] = profiled(torch, pf.mine_now)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the vlm, audio and moe families
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyPhase:
+    """One family served at full width on the card through the
+    reference's model API (``make_batch``, ``prefill``, ``decode_step``)."""
+    name: str
+    arch: str
+    seq_len: int            # make_batch's seq_len (vlm: patches + tokens)
+    launches: int           # tensor-core flash launches a prefill
+    per_layer: int = 1      # flash launches a (decoder) layer
+    layers: Optional[int] = None    # the depth cut; None: full depth
+
+
+#: llava-next-mistral-7b at full depth: 1,152 patches + 896 tokens a row;
+#: whisper-large-v3 at full depth (32 + 32 layers): a 416-token prompt
+#: over 1,500 frames (416 + 32 = whisper's 448-token decoder context),
+#: three flash launches a decoder layer's worth (encoder, self, cross);
+#: qwen3-moe-235b-a22b at full width cut to 8 of its 94 layers (5 GB of
+#: bf16 weights a layer: one 80 GB card holds about 15)
+FAMILY_PHASES = (
+    FamilyPhase("vlm", "llava-next-mistral-7b", 2048, 32),
+    FamilyPhase("audio", "whisper-large-v3", 416, 96, per_layer=3),
+    FamilyPhase("moe", "qwen3-moe-235b-a22b", 2048, 8, layers=8),
+)
+FAMILY_BATCH, FAMILY_NEW = 4, 32
+#: the f32 check of each family at full width, cut to this depth (whisper:
+#: this many encoder and decoder layers)
+F32_FAMILY_LAYERS = 2
+#: f32 full-sequence logits, kernel path against plain path: the
+#: split-TF32 route carries about 2^-21 of relative error a product, which
+#: gave codeqwen's 2-layer last-position logits (std about 1) 7.773e-05;
+#: 1e-3 leaves room for the longest sequence's tail and stays 100 times
+#: below what a wrong attention output gives
+F32_LOGITS_TOL = 1e-3
+#: a moe token may change experts between two correct paths only where
+#: its k-th and (k+1)-th gates tie within their f32 difference: a gap in
+#: gate probability below this (typical gaps at 128 experts are about 4e-4)
+NEAR_TIE = 1e-5
+
+
+def family_cfg(spec: FamilyPhase, **overrides):
+    from repro_torch import configs
+
+    cfg = configs.get_config(spec.arch)
+    cut = {"n_layers": spec.layers} if spec.layers else {}
+    return dataclasses.replace(cfg, attention_impl="pallas",
+                               **{**cut, **overrides})
+
+
+def greedy_on_card(torch, cfg, model, batch: dict, new: int, max_len: int):
+    """``prefill`` then ``new`` greedy ``decode_step``s, as the serving
+    engine times them; returns the tokens (B, new) and the prefill and
+    decode seconds, each ended by a synchronize."""
+    from repro_torch.models import decode_step, prefill
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, model, batch, max_len)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = []
+    for _ in range(new):
+        tok = torch.argmax(logits[:, -1, :].float(), dim=-1, keepdim=True)
+        toks.append(tok)
+        logits, cache = decode_step(cfg, model, cache, tok)
+    out = torch.cat(toks, dim=1).cpu().numpy()
+    torch.cuda.synchronize()
+    return out, t1 - t0, time.perf_counter() - t1
+
+
+class RoutingRecorder:
+    """Wraps ``models.moe.moe_route`` and keeps, for each call, each
+    token's experts (sorted), their kept mask (B, S, k) and the gap between
+    the k-th and (k+1)-th gates (B, S) in ``calls``."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.calls, self._route = torch, [], moe.moe_route
+
+    def __call__(self, p, cfg, x, capacity):
+        torch = self.torch
+        b, s, _ = x.shape
+        k = cfg.experts_per_token
+        topv, ef, keep, slot = self._route(p, cfg, x, capacity)
+        gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+        top = torch.topk(gates, k + 1, dim=-1).values
+        # by expert, not by rank: two of a token's top k may swap ranks
+        experts, order = ef.reshape(b, s, k).sort(dim=-1)
+        self.calls.append((experts,
+                           torch.gather(keep.reshape(b, s, k), -1, order),
+                           top[..., k - 1] - top[..., k]))
+        return topv, ef, keep, slot
+
+
+def rerouted_rows(torch, kernel: list, plain: list, what: str):
+    """Batch rows whose routing differs between the two paths in some
+    layer.  A token may change experts only at a near tie of its gates
+    (``NEAR_TIE``); a kept choice may change only in a row where a token
+    changed experts (the capacity's positions shift after it)."""
+    rows = None
+    flips = 0
+    for (ek, kk, gk), (ep, kp, gp) in zip(kernel, plain):
+        moved = (ek != ep).any(dim=-1)                           # (B, S)
+        flips += int(moved.sum())
+        if bool((torch.minimum(gk, gp)[moved] >= NEAR_TIE).any()):
+            raise AssertionError(f"{what}: a token changed experts between "
+                                 f"the kernel and plain paths without a "
+                                 f"near tie of its gates")
+        row_moved = moved.any(dim=-1)
+        if bool(((kk != kp).any(dim=-1).any(dim=-1) & ~row_moved).any()):
+            raise AssertionError(f"{what}: kept choices differ in a row "
+                                 f"where no token changed experts")
+        rows = row_moved if rows is None else rows | row_moved
+    return rows, flips
+
+
+def f32_family_check(torch, fa_ops, spec: FamilyPhase) -> dict:
+    """Full width cut to ``F32_FAMILY_LAYERS`` layers in f32 (the
+    split-TF32 route): the full-sequence logits of the kernel and plain
+    paths within ``F32_LOGITS_TOL``, and their greedy tokens equal.  For
+    moe, rows where a near tie of two gates sent a token to another
+    expert in one path are left out of both, and counted."""
+    from unittest import mock
+
+    from repro_torch.models import forward, init_params, make_batch, moe
+
+    cut = {"n_layers": F32_FAMILY_LAYERS, "dtype": "float32"}
+    if spec.name == "audio":
+        cut["encoder_layers"] = F32_FAMILY_LAYERS
+    cfg = family_cfg(spec, **cut)
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    batch = make_batch(cfg, FAMILY_BATCH, spec.seq_len, seed=0,
+                       device=DEVICE)
+    max_len = spec.seq_len + FAMILY_NEW
+    per_pass = spec.per_layer * F32_FAMILY_LAYERS
+    logits, outs, routes = {}, {}, {}
+    reset_counts(fa_ops.counts)
+    for impl in ("pallas", "reference"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        rec = RoutingRecorder(torch, moe)
+        with mock.patch.object(moe, "moe_route", rec):
+            logits[impl] = forward(c, model, batch)
+        routes[impl] = rec.calls
+        outs[impl] = greedy_on_card(torch, c, model, batch, FAMILY_NEW,
+                                    max_len)[0]
+    launched = dict(fa_ops.counts)
+    if launched != {"flash_attention": 2 * per_pass, "tensor_core": 0,
+                    "tf32x3": 2 * per_pass}:
+        raise AssertionError(f"{spec.name} f32: the kernel path did not "
+                             f"launch the split-TF32 flash kernel "
+                             f"{per_pass} times in each of its 2 passes: "
+                             f"{launched}")
+    b = FAMILY_BATCH
+    clean = torch.ones(b, dtype=torch.bool, device=DEVICE)
+    flips = 0
+    if cfg.is_moe:
+        moved, flips = rerouted_rows(torch, routes["pallas"],
+                                     routes["reference"], spec.name)
+        clean = ~moved
+    n_clean = int(clean.sum())
+    if n_clean == 0:
+        raise AssertionError(f"{spec.name} f32: every row was rerouted")
+    diff = float((logits["pallas"][clean] - logits["reference"][clean])
+                 .abs().max())
+    keep = clean.cpu().numpy()
+    same = outs["pallas"][keep] == outs["reference"][keep]
+    all_same = int((outs["pallas"] == outs["reference"]).sum())
+    print(f"{spec.name} f32, {F32_FAMILY_LAYERS} layers at full width: "
+          f"full-sequence logits {tuple(logits['pallas'].shape)} max abs diff "
+          f"{diff:.3e} (tol {F32_LOGITS_TOL:g}) over {n_clean} of {b} rows"
+          + (f" ({flips} token-layers routed to other experts at near ties; "
+             f"those rows left out)" if cfg.is_moe else "")
+          + f"; greedy tokens equal {int(same.sum())} of {same.size} "
+          f"({all_same} of {outs['pallas'].size} over all rows); "
+          f"{launched['tf32x3']} split-TF32 launches")
+    if diff > F32_LOGITS_TOL:
+        raise AssertionError(f"{spec.name} f32: logits differ between the "
+                             f"kernel and plain paths by {diff:.3e}")
+    if not same.all():
+        raise AssertionError(f"{spec.name} f32: greedy tokens differ between "
+                             f"the kernel and plain paths")
+    return {"logits_max_abs_diff": diff, "launches": launched["tf32x3"],
+            "rows_checked": n_clean, "routing_flips": flips}
+
+
+def family_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
+                 card: str) -> dict:
+    """Phases 12-14: one family at full width (moe cut in depth) in bf16,
+    random weights from seed 0 made on the card, ``attention_impl=
+    "pallas"``: ``make_batch``, ``prefill`` and ``FAMILY_NEW`` greedy
+    ``decode_step``s.  Each prefill layer launches the tensor-core flash
+    kernel (``spec.launches`` a prefill), never the split-TF32 one or the
+    plain version; the bf16 logits meet phase 7's gate; the f32 check at
+    cut depth holds (:func:`f32_family_check`)."""
+    from repro_torch import configs
+    from repro_torch.models import decode_step, init_params, make_batch, \
+        prefill
+
+    t_phase = time.perf_counter()
+    cfg = family_cfg(spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = make_batch(cfg, FAMILY_BATCH, spec.seq_len, seed=0,
+                       device=DEVICE)
+    max_len = spec.seq_len + FAMILY_NEW
+    extra = {k: tuple(v.shape) for k, v in batch.items() if k != "tokens"}
+    print(f"{spec.name}: {cfg.name} at full width, {cfg.n_layers} layers"
+          + (f" (cut from {configs.get_config(spec.arch).n_layers})"
+             if spec.layers else "")
+          + (f" + {cfg.encoder_layers} encoder layers"
+             if cfg.encoder_layers else "")
+          + f" (d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+          f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}"
+          + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}"
+             if cfg.is_moe else "")
+          + f", vocab {cfg.vocab_size}), {cfg.dtype}: {n_params} weights "
+          f"made on the card from seed 0 in {init_s:.2f} s; batch "
+          f"{FAMILY_BATCH} x {tuple(batch['tokens'].shape[1:])} tokens"
+          + (f" + {extra}" if extra else "") + f", max_len {max_len}")
+
+    reset_counts(*count_tables)
+    out, cold_pre, cold_dec = greedy_on_card(torch, cfg, model, batch,
+                                             FAMILY_NEW, max_len)
+    counted = {"kernel": dict(fa_ops.counts), "plain": dict(fa_ref.counts)}
+    print(f"{spec.name} path counts (one prefill, {FAMILY_NEW} decode "
+          f"steps): {counted}")
+    if counted["kernel"] != {"flash_attention": spec.launches,
+                             "tensor_core": spec.launches, "tf32x3": 0}:
+        raise AssertionError(f"{spec.name}: the prefill did not launch the "
+                             f"tensor-core flash kernel, and only it, "
+                             f"{spec.launches} times: {counted['kernel']}")
+    if any(counted["plain"].values()):
+        raise AssertionError(f"{spec.name}: the path ran the plain version")
+    if out.shape != (FAMILY_BATCH, FAMILY_NEW) or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"{spec.name}: bad generated tokens {out.shape}")
+    warm, warm_pre, warm_dec = greedy_on_card(torch, cfg, model, batch,
+                                              FAMILY_NEW, max_len)
+    if not np.array_equal(warm, out):
+        raise AssertionError(f"{spec.name}: a second run gave other tokens")
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = FAMILY_BATCH * FAMILY_NEW / warm_dec
+    print(f"{spec.name}: prefill {cold_pre:.4f} s cold, {warm_pre:.4f} s "
+          f"warm; {FAMILY_NEW} decode steps {cold_dec:.4f} s cold, "
+          f"{warm_dec:.4f} s warm ({tok_s:.1f} tok/s); "
+          f"max_memory_allocated {peak} B [{card}]")
+
+    gate = bf16_logits_gate(torch, fa_ref, cfg, model, batch, max_len,
+                            spec.name, full=True)
+    print(f"profile of one {spec.name} prefill (warm):")
+    profiled(torch, lambda: prefill(cfg, model, batch, max_len))
+    cache = prefill(cfg, model, batch, max_len)[1]
+    tok = torch.as_tensor(out[:, :1], dtype=torch.int64, device=DEVICE)
+    print(f"profile of one {spec.name} decode step (warm, at position "
+          f"{cache['pos']}):")
+    profiled(torch, lambda: decode_step(cfg, model, cache, tok))
+    del cache, model
+    torch.cuda.empty_cache()
+    f32 = f32_family_check(torch, fa_ops, spec)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"{spec.name} phase: {seconds:.1f} s")
+    return {"launches": counted["kernel"]["tensor_core"],
+            "prefill_s": warm_pre, "decode_s": warm_dec, "tok_s": tok_s,
+            "peak_bytes": peak, "gate": gate, "f32": f32,
+            "seconds": seconds, "params": n_params}
 
 
 # ---------------------------------------------------------------------------
@@ -1695,10 +2094,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     prefetch = prefetcher_phase(torch, core, serving, ops, ref, card)
     phase_s["prefetcher"] = time.perf_counter() - t0
-    print("new phases' seconds: " + ", ".join(
+    # -- phases 12-14: the vlm, audio and moe families --------------------
+    families = {}
+    for spec in FAMILY_PHASES:
+        families[spec.name] = family_phase(torch, fa_ops, fa_ref,
+                                           count_tables, spec, card)
+        phase_s[spec.name] = families[spec.name]["seconds"]
+    print("phases 9-14 seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in phase_s.items()))
 
-    # -- phase 12: the kernels line and the result ------------------------
+    # -- phase 15: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -1748,13 +2153,30 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tflop_s": t["tflop_s"], "bound_share": t["bound_share"],
             "shape": t["shape"], "dtype": t["dtype"], "causal": True,
+            **({"rounding_share": t["rounding_share"]}
+               if t["rounding_share"] is not None else {}),
             "tensor_core_instructions": tc_instructions[which],
-            **({"ffma_bound_ms": t["ffma_bound_ms"]}
-               if "ffma_bound_ms" in t else {}),
+            **{key: t[key] for key in ("ffma_bound_ms", "p_parts_ms",
+                                       "p_parts_rounding_share") if key in t},
         })
-    d112 = flash["tf32x3_d112"]
-    kernels[-1].update({f"d112_{key}": d112[key] for key in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_share", "shape")})
+    # each family's path launches the tensor-core kernel; its f32 check
+    # the split-TF32 one
+    kernels[-2].update(family_launches={
+        name: fam["launches"] for name, fam in families.items()}, **{
+        f"{name}_{key}": fam[key] for name, fam in families.items()
+        for key in ("prefill_s", "tok_s", "peak_bytes")}, **{
+        f"{name}_gate_mean_ratio": fam["gate"]["mean_ratio"]
+        for name, fam in families.items()})
+    kernels[-1].update(f32_family_launches={
+        name: fam["f32"]["launches"] for name, fam in families.items()},
+        f32_family_logits_max_abs_diff={
+        name: fam["f32"]["logits_max_abs_diff"]
+        for name, fam in families.items()})
+    for d in (112, 256):
+        t = flash[f"tf32x3_d{d}"]
+        kernels[-1].update({f"d{d}_{key}": t[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
+            "shape")})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ The client's host-side simulation is copied module by module; VMSP
 mining keeps its bitmaps on the device and counts support with the
 hand-written Hopper kernels in :mod:`repro_torch.kernels`.  The LM
 serving stack (:mod:`repro_torch.models`, :mod:`repro_torch.serving`,
-``python -m repro_torch.launch.serve``) runs the dense family, with
-prefill attention on the hand-written Hopper flash-attention kernel.
+``python -m repro_torch.launch.serve``) runs the dense, moe, vlm and
+audio families, with prefill attention on the hand-written Hopper
+flash-attention kernels.
 
 Importing this package never loads JAX or anything of :mod:`repro`.
 """

@@ -1,6 +1,8 @@
-"""qwen3-moe-235b-a22b — 128 experts top-8 [hf:Qwen/Qwen3-30B-A3B; hf].
+"""qwen3-moe-235b-a22b — 128 experts top-8 [hf:Qwen/Qwen3-235B-A22B].
 
-Copied unchanged from ``src/repro/configs/qwen3_moe_235b.py``.
+Copied from ``src/repro/configs/qwen3_moe_235b.py``; only the source on
+the first line differs: the reference's names hf:Qwen/Qwen3-30B-A3B,
+whose dimensions are not these.
 
 94L d_model=4096 64H (GQA kv=4) d_ff=1536 (per expert) vocab=151936.
 """

@@ -2,7 +2,7 @@
 // TF32, bound to Python through ctypes: the route of float32 at every
 // head_dim and of bfloat16 at every head_dim but 64 and 128, which run on
 // flash_attention_wgmma.cu.  It is instantiated at every multiple of 16 up
-// to 128, in both types; the wrapper zero-pads a head_dim between them up
+// to 256, in both types; the wrapper zero-pads a head_dim between them up
 // to the next one (QK^T reads 16 head_dim columns at a time).
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
@@ -57,9 +57,16 @@
 // way over 16 head_dim columns, so a thread's q and k fragments are one
 // 16-byte shared load each.  Row strides are padded so that those loads
 // and V's scalar loads meet no bank conflict.  O accumulates in registers
-// (D/2 of them a thread).  The k loop stops at the last tile a causal row
-// of the block can see, and only tiles on the diagonal or the ragged end
-// are masked.
+// (half a block's output columns a thread, at most 64).  The k loop stops
+// at the last tile a causal row of the block can see, and only tiles on
+// the diagonal or the ragged end are masked.
+//
+// Past head_dim 128 the output's head_dim is split into two equal chunks
+// (at most 128 columns each) on the grid: each block computes S = QK^T
+// over the whole head_dim, as a D-128 block does, and accumulates only its
+// own chunk of O, reading only that chunk of V.  O's registers stay those
+// of D 128, and QK^T's work doubles.  The q tile and the 32-row K tiles
+// then take 93-173 KB of shared memory, one block an SM from D 192 up.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,19 +87,30 @@ struct Strides {
 
 template <int D>
 struct Tile {
+  // the output's head_dim in equal chunks of at most 128 columns, one a
+  // block; a chunk is a multiple of 8 columns (an mma n-tile)
+  static constexpr int kChunks = (D + 127) / 128;
+  static constexpr int kOut = D / kChunks;
+  static_assert(D % 16 == 0 && kOut * kChunks == D && kOut % 8 == 0,
+                "head_dim must be a multiple of 16");
   // 32 keys past D 64: with 64 at D 112 the two stages would take 143 KB
   // and leave one block (4 warps) an SM
   static constexpr int kBlockK = D > 64 ? 32 : 64;
   // q and k rows are read 16 bytes a thread, a quarter warp at a time
   // over two rows: a row stride of 16 mod 32 words keeps those apart
   static constexpr int kQKRow = D % 32 == 16 ? D : D + 16;
-  // v is read one word a thread from rows 2t and 2t + 1: 4 mod 32 words
-  static constexpr int kVRow = D + 4;
+  // v is read one word a thread from rows 2t and 2t + 1: a row stride of
+  // 4 or 12 mod 16 words puts the four t on four distinct 8-bank groups
+  static constexpr int kVRow = kOut + 4;
   static constexpr int kQWords = kBlockQ * kQKRow;
   static constexpr int kKWords = kBlockK * kQKRow;
   static constexpr int kVWords = kBlockK * kVRow;
   static constexpr size_t kSmemBytes =
       sizeof(float) * (kQWords + 2 * (kKWords + kVWords));
+  // blocks an SM its shared memory allows: 228 KB an SM, 1 KB of it
+  // reserved a block
+  static constexpr int kMinBlocks =
+      2 * (kSmemBytes + 1024) <= 228 * 1024 ? 2 : 1;
 };
 
 // x = big + small, each a TF32 value (10 mantissa bits, the low 13 bits
@@ -187,10 +205,10 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);       // round to nearest even, as astype does
 }
 
-// two blocks an SM: shared memory allows it at every D (at most 107,520
-// bytes, at D 128)
+// two blocks an SM up to D 176 (at most 113,664 bytes of shared memory),
+// one past it
 template <typename T, int D, bool kVec16>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
 flash_attention_tf32x3_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
                               const T* __restrict__ v, T* __restrict__ out,
@@ -200,7 +218,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   using Cfg = Tile<D>;
   constexpr int BK = Cfg::kBlockK;
   constexpr int NT = BK / 8;          // score n-tiles of a warp
-  constexpr int ND = D / 8;           // output n-tiles of a warp
+  constexpr int DO = Cfg::kOut;       // this block's output columns
+  constexpr int ND = DO / 8;          // output n-tiles of a warp
   constexpr int QK = Cfg::kQKRow, VR = Cfg::kVRow;
   constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
@@ -208,8 +227,11 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   float* s_k = s_q + Cfg::kQWords;            // two stages
   float* s_v = s_k + 2 * Cfg::kKWords;        // two stages
 
-  const int bh = blockIdx.x / q_tiles;
-  const int qt = q_tiles - 1 - (int)(blockIdx.x % q_tiles);
+  // chunks fastest, then q tiles: a q tile's chunks run side by side
+  const int chunk = (int)(blockIdx.x % Cfg::kChunks);
+  const int tile = (int)(blockIdx.x / Cfg::kChunks);
+  const int bh = tile / q_tiles;
+  const int qt = q_tiles - 1 - tile % q_tiles;
   const int b = bh / Hq, h = bh % Hq, hk = h / group;
   const int q0 = qt * kBlockQ;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -218,8 +240,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-  T* ob = out + b * os.b + h * os.h;
+  const T* vb = v + b * vs.b + hk * vs.h + chunk * DO;
+  T* ob = out + b * os.b + h * os.h + chunk * DO;
 
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) {
@@ -231,7 +253,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   load_rows<T, D, kVec16>(s_q, QK, qb, qs.s, q0, kBlockQ, Lq);
   if (n_tiles > 0) {
     load_rows<T, D, kVec16>(s_k, QK, kb, ks.s, 0, BK, Lk);
-    load_rows<T, D, kVec16>(s_v, VR, vb, vs.s, 0, BK, Lk);
+    load_rows<T, DO, kVec16>(s_v, VR, vb, vs.s, 0, BK, Lk);
   }
   cp_async_commit();
 
@@ -252,8 +274,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
     if (it + 1 < n_tiles) {                   // the next tile, other stage
       load_rows<T, D, kVec16>(s_k + (st ^ 1) * Cfg::kKWords, QK, kb, ks.s,
                               k0 + BK, BK, Lk);
-      load_rows<T, D, kVec16>(s_v + (st ^ 1) * Cfg::kVWords, VR, vb, vs.s,
-                              k0 + BK, BK, Lk);
+      load_rows<T, DO, kVec16>(s_v + (st ^ 1) * Cfg::kVWords, VR, vb, vs.s,
+                               k0 + BK, BK, Lk);
     }
     cp_async_commit();
     cp_async_wait<1>();                       // this tile has landed
@@ -411,7 +433,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (Lq + kBlockQ - 1) / kBlockQ;
-  const long long blocks = (long long)B * Hq * q_tiles;
+  const long long blocks = (long long)B * Hq * q_tiles * Tile<D>::kChunks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -435,7 +457,7 @@ cudaError_t launch_vec(bool vec16, const void* q, const void* k,
                              Lk, causal, scale_log2, stream);
 }
 
-// every multiple of 16 up to 128, in float32 and bfloat16 (bfloat16 at 64
+// every multiple of 16 up to 256, in float32 and bfloat16 (bfloat16 at 64
 // and 128 is the tensor-core route's, and here serves a padded head_dim)
 template <typename T>
 cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
@@ -456,6 +478,14 @@ cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
     FA_HEAD_DIM(96)
     FA_HEAD_DIM(112)
     FA_HEAD_DIM(128)
+    FA_HEAD_DIM(144)
+    FA_HEAD_DIM(160)
+    FA_HEAD_DIM(176)
+    FA_HEAD_DIM(192)
+    FA_HEAD_DIM(208)
+    FA_HEAD_DIM(224)
+    FA_HEAD_DIM(240)
+    FA_HEAD_DIM(256)
   }
 #undef FA_HEAD_DIM
   return cudaErrorInvalidValue;
@@ -472,7 +502,7 @@ extern "C" {
 
 // Returns the CUDA error of the launch (0 on success); the kernel runs
 // asynchronously on `stream` of card `device`.  dtype: 0 float32, 1
-// bfloat16, q, k, v and out alike; D a multiple of 16 up to 128.
+// bfloat16, q, k, v and out alike; D a multiple of 16 up to 256.
 // Strides are in elements, in the order (batch, head, position) for q, k,
 // v and out; head_dim is contiguous.  B * Hq, Lq and Lk must be positive.
 // float32 q, k and v are copied 16 bytes at a time when each base is

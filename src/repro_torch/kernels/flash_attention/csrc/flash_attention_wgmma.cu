@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
 // src/repro/kernels/flash_attention/flash_attention.py for bf16 inputs,
-// and computes what that kernel computes (and what flash_attention.cu,
-// which keeps float32 and the small head dims, computes):
+// and computes what that kernel computes (and what
+// flash_attention_tf32x3.cu, which keeps float32 and the other head dims,
+// computes):
 //
 //   out[b,h,r] = sum_c p[r,c] v[b,h/group,c] / sum_c p[r,c]
 //   p[r,c]     = exp(q[b,h,r] . k[b,h/group,c] * sm_scale - m[r]) where
@@ -15,9 +16,14 @@
 // Scores, the running max m, the normalizer l and the accumulator are f32.
 // A row that sees no column comes out 0, by the TPU kernel's three guards
 // (m_safe = 0 where the running max is -inf, alpha = 0 where the previous
-// max is -inf, a denominator of 1 where l = 0).  One deliberate difference:
-// p is rounded to bf16 before the product with v, which the tensor cores
-// take in bf16 (the TPU kernel multiplies f32 p by f32 v); l sums the f32 p.
+// max is -inf, a denominator of 1 where l = 0).  The tensor cores take p
+// in bf16, so f32 p is split into kParts bf16 parts, each the bf16
+// rounding of what the earlier ones left, and P V is one product a part,
+// smallest first.  Three parts (the wrapper's choice) carry all 24 bits of
+// f32 p, as the TPU kernel multiplies f32 p by f32 v; two carry 2^-16 of
+// relative error and one bf16's 2^-8, and the bf16 logits of a 32-layer
+// model drifted past bf16's own floor with one, and a moe model's with
+// two (PERF.md, Findings).  l sums the f32 p.
 // The kernel needs sm_scale > 0: the wrapper folds a sign or a zero into q.
 //
 // Bound: at the serving prefill (B 4, H 32, L 2,048, D 128, causal) the
@@ -27,19 +33,22 @@
 //
 // Design: the shape of a Hopper GEMM with the online softmax between its
 // two products.
-//  * One block of 288 threads owns a 128-row q tile of one (b, h): two
-//    consumer warpgroups of 64 rows each, and one producer warp.  The grid
+//  * One block of 256 threads owns a 128-row q tile of one (b, h): two
+//    warpgroups of 64 rows each.  The grid
 //    is 1-D over (B * Hq) x q tiles (up to 2^31 - 1 blocks), the q tile
 //    varying fastest: the blocks run head by head, so the 16 q tiles
 //    of a 2,048-row head re-read its K and V from L2, not from HBM (with
 //    every head's longest tile first, the prefill's 134 MB of K and V
 //    cycled through the 50 MB L2 and the kernel took 1.2x as long);
 //    within a head the q tiles are issued longest causal row first.
-//  * The producer's lane 0 issues TMA copies (rank-4 tensor maps over
+//  * Thread 0 issues TMA copies (rank-4 tensor maps over
 //    (D, S, H, B) built from the caller's strides, so the model's
 //    (B, S, H, D) views are read in place) into 128-byte-swizzled shared
 //    memory: the q tile once, then a 2-stage ring of 128-row K and V tiles
-//    with mbarriers for full and empty slots.  Rows past Lq or Lk arrive as
+//    with mbarriers for full and empty slots, tile j + 1 as tile j is
+//    used.  (A producer warp would make a block of 288 threads, for which
+//    ptxas holds a thread to 168 registers, too few for three parts of P:
+//    it spilled.)  Rows past Lq or Lk arrive as
 //    zeros.  A 128-column tile is stored as D/64 regions of 128 rows x 128
 //    bytes.  At D = 128 that is 32 KB of q and 2 x 64 KB of K and V, so one
 //    block runs on an SM.
@@ -49,19 +58,21 @@
 //    never loaded.  The softmax runs in registers: each thread holds 2 rows
 //    x 32 columns, reduces a row with two quad shuffles, and takes
 //    exp2(s * sm_scale * log2(e) - m) as one FMA and one ex2.approx.
-//  * O += P V: P is rounded to bf16 in registers, where the accumulator
-//    layout of the first product is the A-operand layout of the second,
-//    and fed to wgmma.m64n64k16 with V read from shared memory as an
-//    MN-major (transposed) B operand, one instruction per 64 columns of D.
-//    O stays in registers, rescaled by alpha each tile.
+//  * O = alpha O + P V: P is split into bf16 parts in registers, where
+//    the accumulator layout of the first product is the A-operand layout
+//    of the second, and each part is fed to wgmma.m64n64k16 with V read
+//    from shared memory as an MN-major (transposed) B operand, one
+//    instruction per part and 64 columns of D.  A tile's products are
+//    summed from zero into a 64-column accumulator, which joins O in f32
+//    registers by one FMA an element (a sum chained through every tile's
+//    products drifts further from the f32 attention).
 //  * Epilogue: O / l in f32, rounded to bf16, stored through the (B, S, H,
 //    D) strides of the output.
 // Tried on the H100 and measured no faster (PERF.md, Findings): issuing
 // S_{j+1} with P_j V_j and running softmax j+1 meanwhile; the two
 // warpgroups taking turns on the tensor cores; a producer warpgroup with
-// setmaxnreg; 256 threads with thread 0 issuing the copies; a third
-// stage.  ptxas held 288- and 384-thread blocks to 168 registers and
-// serialized the wgmma of most overlapped forms.
+// setmaxnreg; a third stage.  ptxas held 288- and 384-thread blocks to 168
+// registers and serialized the wgmma of most overlapped forms.
 // A wait on an mbarrier that has not completed after about ten seconds
 // traps, so a fault in the pipeline ends the launch with an error instead
 // of hanging the card.
@@ -76,7 +87,7 @@ namespace {
 
 constexpr int kBlock = 128;          // q rows per block, kv rows per tile
 constexpr int kConsumerWarps = 8;              // two warpgroups
-constexpr int kThreads = 32 * (kConsumerWarps + 1);
+constexpr int kThreads = 32 * kConsumerWarps;
 constexpr int kStages = 2;
 constexpr int kRegionBytes = kBlock * 128;     // 128 rows x 64 bf16 columns
 constexpr long long kWatchdogCycles = 1ll << 34;
@@ -197,11 +208,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[32] += A (64 x 16 bf16 in registers) . B (16 x 64, MN-major in shared
-// memory)
+// d[32] (+)= A (64 x 16 bf16 in registers) . B (16 x 64, MN-major in
+// shared memory); scale_d = 0 overwrites d
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                    const uint32_t (&a)[4],
-                                                   uint64_t db) {
+                                                   uint64_t db, int scale_d) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -215,7 +226,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // 2^x by the SFU alone (ex2.approx.ftz): exp2f adds a range fix-up of
@@ -232,10 +243,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// (x, y) as kParts pairs of bf16, largest first: each part rounds to bf16
+// what the earlier parts left (the remainder is exact in f32), so three
+// parts carry all 24 bits of an f32
+template <int kParts>
+__device__ __forceinline__ void split_bf16(float x, float y,
+                                           uint32_t (&parts)[kParts]) {
+#pragma unroll
+  for (int i = 0; i < kParts; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 hf = __bfloat1622float2(h);
+    parts[i] = *reinterpret_cast<const uint32_t*>(&h);
+    x -= hf.x;
+    y -= hf.y;
+  }
+}
+
 // Accumulator layout of wgmma.m64nN (f32), for thread `lane` of warp w of
 // the warpgroup: element j sits at row 16 w + lane / 4 + 8 ((j / 2) % 2)
 // and column 8 (j / 4) + 2 (lane % 4) + j % 2.
-template <int D>
+template <int D, int kParts>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -283,29 +310,28 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-
-  if (warp == kConsumerWarps) {
-    // producer: one thread keeps the ring full
-    if (lane == 0 && n_tiles > 0) {
-      mbar_expect_tx(bar_q, kTile);
-      for (int r = 0; r < kRegions; ++r)
-        tma_load_4d(s_q + r * kRegionBytes, &tm_q, bar_q, 64 * r, q0, h, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages)   // the slot's previous tile has been read
-          mbar_wait(bar_free + 8 * s, ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_k + 8 * s, kTile);
-        for (int r = 0; r < kRegions; ++r)
-          tma_load_4d(s_k + s * kTile + r * kRegionBytes, &tm_k, bar_k + 8 * s,
-                      64 * r, j * kBlock, hk, b);
-        mbar_expect_tx(bar_v + 8 * s, kTile);
-        for (int r = 0; r < kRegions; ++r)
-          tma_load_4d(s_v + s * kTile + r * kRegionBytes, &tm_v, bar_v + 8 * s,
-                      64 * r, j * kBlock, hk, b);
-      }
-    }
-    return;
+  // thread 0 issues the copies: K and V of tile jj into ring slot
+  // jj % kStages, once every warp has read the tile the slot held before
+  const bool issuer = threadIdx.x == 0;
+  auto issue = [&](int jj) {
+    const int s = jj % kStages;
+    if (jj >= kStages) mbar_wait(bar_free + 8 * s, ((jj / kStages) & 1) ^ 1);
+    mbar_expect_tx(bar_k + 8 * s, kTile);
+    for (int r = 0; r < kRegions; ++r)
+      tma_load_4d(s_k + s * kTile + r * kRegionBytes, &tm_k, bar_k + 8 * s,
+                  64 * r, jj * kBlock, hk, b);
+    mbar_expect_tx(bar_v + 8 * s, kTile);
+    for (int r = 0; r < kRegions; ++r)
+      tma_load_4d(s_v + s * kTile + r * kRegionBytes, &tm_v, bar_v + 8 * s,
+                  64 * r, jj * kBlock, hk, b);
+  };
+  if (issuer && n_tiles > 0) {
+    mbar_expect_tx(bar_q, kTile);
+    for (int r = 0; r < kRegions; ++r)
+      tma_load_4d(s_q + r * kRegionBytes, &tm_q, bar_q, 64 * r, q0, h, b);
+    issue(0);
   }
+  __syncwarp();
 
   // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread owns
   // rows row0 and row0 + 8 of them
@@ -327,6 +353,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int s = j % kStages;
     const uint32_t parity = (j / kStages) & 1;
     const int k0 = j * kBlock;
+    if (issuer && j + 1 < n_tiles) issue(j + 1);   // while tile j is used
+    __syncwarp();
 
     // S = Q K^T
     float sc[64];
@@ -380,33 +408,44 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr)
       l_part[rr] = l_part[rr] * alpha[rr] + sum[rr];
-#pragma unroll
-    for (int r = 0; r < kRegions; ++r)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[r][i] *= alpha[(i / 2) % 2];
 
-    // P in bf16, laid out as the A operand: k-step kk takes columns
+    // P's bf16 parts, laid out as the A operand: k-step kk takes columns
     // 16 kk .. 16 kk + 15, which are accumulator elements 8 kk .. 8 kk + 7
-    uint32_t pa[8][4];
+    uint32_t pp[8][4][kParts];
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+        split_bf16<kParts>(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1],
+                           pp[kk][e]);
 
-    // O += P V
+    // O = alpha O + P V, 64 columns at a time: the tensor cores sum this
+    // tile's products, smallest part first, from zero into t, and t joins
+    // O in f32 (a sum chained through every tile's products drifts more)
     mbar_wait(bar_v + 8 * s, parity);
-    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int r = 0; r < kRegions; ++r) {
+      float t[32];
 #pragma unroll
-      for (int r = 0; r < kRegions; ++r)
-        wgmma_m64n64k16_rs(
-            o[r], pa[kk],
-            smem_desc(s_v + s * kTile + r * kRegionBytes + kk * 16 * 128, 1024,
-                      1024));
-    wgmma_commit();
-    wgmma_wait_all();
+      for (int i = 0; i < 32; ++i) t[i] = 0.f;   // overwritten (scale_d = 0)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dv = smem_desc(
+            s_v + s * kTile + r * kRegionBytes + kk * 16 * 128, 1024, 1024);
+#pragma unroll
+        for (int part = kParts - 1; part >= 0; --part) {
+          const uint32_t a[4] = {pp[kk][0][part], pp[kk][1][part],
+                                 pp[kk][2][part], pp[kk][3][part]};
+          wgmma_m64n64k16_rs(t, a, dv, kk > 0 || part < kParts - 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[r][i] = fmaf(o[r][i], alpha[(i / 2) % 2], t[i]);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(bar_free + 8 * s);
   }
@@ -477,7 +516,7 @@ CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);   // out of bounds: zeros
 }
 
-template <int D>
+template <int D, int kParts>
 int launch(const void* q, const void* k, const void* v, void* out,
            Strides qs, Strides ks, Strides vs, Strides os, int B, int Hq,
            int Hkv, int Lq, int Lk, int causal, float sm_scale, int device,
@@ -489,7 +528,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (res == CUDA_SUCCESS) res = make_map(&tm_k, encode, k, D, Lk, Hkv, B, ks);
   if (res == CUDA_SUCCESS) res = make_map(&tm_v, encode, v, D, Lk, Hkv, B, vs);
   if (res != CUDA_SUCCESS) return 10000 + (int)res;
-  const auto kernel = flash_attention_wgmma_kernel<D>;
+  const auto kernel = flash_attention_wgmma_kernel<D, kParts>;
   constexpr size_t smem = smem_bytes<D>();
   // above 48 KB a block's shared memory must be asked for, once a card
   static bool configured[kMaxDevices] = {};
@@ -515,12 +554,14 @@ extern "C" {
 // the CUresult when a tensor map cannot be built.  q, k, v and out
 // are bfloat16 with a contiguous head_dim, 16-byte-aligned bases and
 // (batch, head, position) strides in elements that are multiples of 8;
-// D is 64 or 128; sm_scale > 0; B * Hq, Lq and Lk positive, and
+// D is 64 or 128; p_parts, the bf16 parts P is split into for the
+// tensor cores, 1, 2 or 3; sm_scale > 0; B * Hq, Lq and Lk positive, and
 // B * Hq * ceil(Lq / 128) at most 2^31 - 1.  The kernel runs
 // asynchronously on `stream` of card `device`.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int Hq, int Hkv, int Lq,
-                                 int Lk, int D, int causal, float sm_scale,
+                                 int Lk, int D, int p_parts, int causal,
+                                 float sm_scale,
                                  long long q_sb, long long q_sh, long long q_ss,
                                  long long k_sb, long long k_sh, long long k_ss,
                                  long long v_sb, long long v_sh, long long v_ss,
@@ -532,16 +573,20 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
-                        causal, sm_scale, device, stream);
-    case 128:
-      return launch<128>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk,
-                         causal, sm_scale, device, stream);
+#define FA_LAUNCH(d, parts)                                                  \
+  return launch<d, parts>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, Lk, \
+                          causal, sm_scale, device, stream)
+  switch (D * 4 + p_parts) {
+    case 64 * 4 + 1: FA_LAUNCH(64, 1);
+    case 64 * 4 + 2: FA_LAUNCH(64, 2);
+    case 64 * 4 + 3: FA_LAUNCH(64, 3);
+    case 128 * 4 + 1: FA_LAUNCH(128, 1);
+    case 128 * 4 + 2: FA_LAUNCH(128, 2);
+    case 128 * 4 + 3: FA_LAUNCH(128, 3);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FA_LAUNCH
 }
 
 // Dynamic shared memory of a block at head_dim D (64 or 128), in bytes;

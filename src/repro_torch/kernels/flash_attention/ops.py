@@ -24,7 +24,9 @@ a call takes from its dtype and head_dim alone:
   It is instantiated at the head_dims of :data:`HEAD_DIMS`; a head_dim
   between them runs on a zero-padded copy of q, k and v (zero columns add
   nothing to q.k and give zero output columns), and one past
-  :data:`MAX_HEAD_DIM` raises ``ValueError`` on a card.
+  :data:`MAX_HEAD_DIM` raises ``ValueError`` on a card.  Past head_dim
+  128 a block writes one of two equal chunks of the output's head_dim
+  (:func:`out_chunks`), after computing q.k over the whole of it.
 
 Each kernel takes its tensors' (batch, head, position) strides and needs
 only the head_dim to be contiguous, so a transposed view of the model's
@@ -51,7 +53,7 @@ from .._launch import launch_args, on_cpu
 from . import ref
 
 __all__ = ["flash_attention", "counts", "load", "route", "kernel_head_dim",
-           "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES"]
+           "out_chunks", "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -67,18 +69,23 @@ _LIBRARIES = {
                                           *_TAIL]}),
     "tensor_core": ("flash_attention_wgmma",
                     (_CSRC / "flash_attention_wgmma.cu",), {
-        # q, k, v, out, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale, ...
+        # q, k, v, out, B, Hq, Hkv, Lq, Lk, D, p_parts, causal, sm_scale, ...
         "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         _I, _I, ctypes.c_float, *_TAIL],
+                                         _I, _I, _I, ctypes.c_float, *_TAIL],
         # D -> dynamic shared memory of a block, in bytes
         "flash_attention_wgmma_smem_bytes": [_I]}),
 }
 ROUTES = tuple(_LIBRARIES)
 #: head_dims the split-TF32 kernel is instantiated for, in both dtypes:
 #: its QK^T reads 16 head_dim columns at a time
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+HEAD_DIMS = tuple(range(16, 257, 16))
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+_OUT_COLUMNS = 128        # most output columns a split-TF32 block holds
 _TENSOR_CORE_DIMS = (64, 128)
+#: bf16 parts the tensor-core kernel splits f32 p into for P.V (1 to 3):
+#: three carry all of f32's 24 bits, so its output rounds like the plain
+#: version's f32 attention; fewer are faster and drift further
+P_PARTS = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_Q = {"tf32x3": 64, "tensor_core": 128}   # q rows per block
 _INT_MAX = 2 ** 31 - 1    # a grid's x limit
@@ -150,11 +157,19 @@ def kernel_head_dim(d: int) -> int:
     return -(-d // 16) * 16
 
 
-def _check_grid(which: str, b: int, hq: int, lq: int) -> None:
+def out_chunks(d: int) -> int:
+    """The chunks the split-TF32 kernel splits the output's head_dim into
+    at kernel head_dim ``d``, one a block: 1 up to 128, 2 past it."""
+    return -(-d // _OUT_COLUMNS)
+
+
+def _check_grid(which: str, b: int, hq: int, lq: int, d: int) -> None:
     """Raise ``ValueError`` where route ``which``'s grid cannot hold the
-    call: each route's grid is 1-D over (B * Hq) x q tiles of
-    ``_BLOCK_Q[which]`` rows."""
-    if b * hq * -(-lq // _BLOCK_Q[which]) > _INT_MAX:
+    call at kernel head_dim ``d``: each route's grid is 1-D over
+    (B * Hq) x q tiles of ``_BLOCK_Q[which]`` rows, on the split-TF32
+    route times ``out_chunks(d)``."""
+    chunks = out_chunks(d) if which == "tf32x3" else 1
+    if b * hq * -(-lq // _BLOCK_Q[which]) * chunks > _INT_MAX:
         raise ValueError(f"q ({b}, {hq}, {lq}, D) exceeds the {which} "
                          f"kernel's grid")
 
@@ -191,7 +206,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if lk == 0:                 # every row sees nothing
         return out.zero_()
-    _check_grid(which, b, hq, lq)
+    _check_grid(which, b, hq, lq, dk)
     res = out
     if dk != d:                 # the split-TF32 route only
         q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
@@ -204,13 +219,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q = q.neg() if sm_scale < 0 else torch.zeros_like(q)
         sm_scale = -sm_scale if sm_scale < 0 else 1.0
     ptrs = [t.data_ptr() for t in (q, k, v, res)]
-    rest = [b, hq, hkv, lq, lk, dk, int(causal), float(sm_scale),
+    dims = [b, hq, hkv, lq, lk, dk]
+    rest = [int(causal), float(sm_scale),
             *(s for t in (q, k, v, res) for s in _strides(t)), dev, stream]
     if which == "tf32x3":
         err = load(which).flash_attention_tf32x3_launch(
-            *ptrs, _DTYPES[q.dtype], *rest)
+            *ptrs, _DTYPES[q.dtype], *dims, *rest)
     else:
-        err = load(which).flash_attention_wgmma_launch(*ptrs, *rest)
+        err = load(which).flash_attention_wgmma_launch(
+            *ptrs, *dims, P_PARTS, *rest)
     if err:
         raise RuntimeError(f"flash_attention ({which}) launch failed: "
                            f"{_describe(err)}")

@@ -1,16 +1,19 @@
-"""LM stack on PyTorch: layers, attention and the dense-family
-transformer, with prefill attention on the hand-written Hopper
-flash-attention kernel.
+"""LM stack on PyTorch: layers, attention, the mixture of experts and the
+transformer of the dense, moe, vlm and audio families, with prefill
+attention on the hand-written Hopper flash-attention kernels.
 
-The port of ``src/repro/models`` for the dense family.  MoE, the SSM
-mixers, the other families, ``loss_fn`` and the dry-run's shape specs
-are not ported yet (ROADMAP Queue 1 items 8-10, 13).
+The port of ``src/repro/models``.  The SSM mixers and the ssm and hybrid
+families (ROADMAP Queue 1 item 4), ``loss_fn`` and blocked attention
+(item 5), the expert-parallel ``shard_map`` path and the dry-run's shape
+specs (item 6) are not ported yet.
 """
 
 from .convert import params_from_jax
 from .io import make_batch, text_len
+from .moe import moe_apply, moe_capacity, moe_init
 from .transformer import (
     DenseLM,
+    EncDecLM,
     decode_step,
     fill_cache,
     forward,
@@ -20,6 +23,7 @@ from .transformer import (
 )
 
 __all__ = [
-    "DenseLM", "decode_step", "fill_cache", "forward", "init_cache",
-    "init_params", "make_batch", "params_from_jax", "prefill", "text_len",
+    "DenseLM", "EncDecLM", "decode_step", "fill_cache", "forward",
+    "init_cache", "init_params", "make_batch", "moe_apply", "moe_capacity",
+    "moe_init", "params_from_jax", "prefill", "text_len",
 ]

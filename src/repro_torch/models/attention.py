@@ -1,4 +1,5 @@
-"""GQA attention: init, prefill forward, cached decode.
+"""GQA attention: init, prefill forward (self, encoder and cross
+attention), cached decode.
 
 The port of ``src/repro/models/attention.py``.  Activations are
 (B, S, H, D), as in the reference.  ``cfg.attention_impl`` picks the
@@ -9,11 +10,9 @@ prefill path:
   plain version on CPU tensors);
 * ``"reference"`` runs the plain einsum path, :func:`_reference_attention`;
 * ``"blocked"`` (the reference's ``custom_vjp`` training attention) is
-  not ported yet.
+  not ported yet: ROADMAP Queue 1 item 5.
 
-Decode stays on the plain path, as in the reference.  The reference's
-cross-attention and no-RoPE options (``kv_x``, ``use_rope``, ``d_in``)
-serve only the audio family and wait for its port.
+Decode stays on the plain path, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,8 +27,9 @@ from .layers import Params, dense_init, rope
 __all__ = ["attn_init", "attention", "decode_attention", "init_layer_cache"]
 
 
-def attn_init(generator: torch.Generator, cfg, dtype) -> Params:
-    d = cfg.d_model
+def attn_init(generator: torch.Generator, cfg, dtype,
+              d_in: Optional[int] = None) -> Params:
+    d = d_in or cfg.d_model
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     return Params(
         wq=dense_init(generator, (d, hq * hd), dtype=dtype),
@@ -46,16 +46,24 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int
 
 
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-              causal: bool = True):
-    """Full-sequence self-attention (prefill).
+              causal: bool = True, kv_x: Optional[torch.Tensor] = None,
+              use_rope: bool = True):
+    """Full-sequence attention (prefill / encoder / cross).
 
-    x: (B, S, D).  Returns (out (B, S, D), (k, v) heads (B, S, Hkv, hd)
-    for the cache).
+    x: (B, S, D).  kv_x: the source of k/v (cross-attention), or None
+    (self).  Returns (out (B, S, D), (k, v) heads (B, Sk, Hkv, hd) for the
+    cache).
     """
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = rope(_split_heads(x @ p["wq"], hq, hd), positions, cfg.rope_theta)
-    k = rope(_split_heads(x @ p["wk"], hkv, hd), positions, cfg.rope_theta)
-    v = _split_heads(x @ p["wv"], hkv, hd)
+    src = x if kv_x is None else kv_x
+    q = _split_heads(x @ p["wq"], hq, hd)
+    k = _split_heads(src @ p["wk"], hkv, hd)
+    v = _split_heads(src @ p["wv"], hkv, hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        kv_pos = positions if kv_x is None else torch.arange(
+            src.shape[1], device=src.device)[None]
+        k = rope(k, kv_pos, cfg.rope_theta)
 
     if cfg.attention_impl == "pallas" and x.shape[1] > 1:
         # (B, S, H, D) viewed as (B, H, S, D): the kernel reads the strides
@@ -66,7 +74,7 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
         raise NotImplementedError(
             "attention_impl='blocked' (models/blocked_attention.py, a "
             "custom_vjp for training) is not ported yet: ROADMAP Queue 1 "
-            "item 8")
+            "item 5")
     else:
         out = _reference_attention(q, k, v, causal=causal)
     b, s, _, _ = out.shape
@@ -112,7 +120,8 @@ def init_layer_cache(cfg, batch: int, max_len: int, dtype,
 
 
 def decode_attention(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int):
+                     v_cache: torch.Tensor, pos: int, *,
+                     use_rope: bool = True):
     """Single-step decode: x (B, 1, D); k/v_cache (B, Lmax, Hkv, hd);
     pos: number of tokens already in the cache.
 
@@ -122,9 +131,12 @@ def decode_attention(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
     positions = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
-    q = rope(_split_heads(x @ p["wq"], hq, hd), positions, cfg.rope_theta)
-    k = rope(_split_heads(x @ p["wk"], hkv, hd), positions, cfg.rope_theta)
+    q = _split_heads(x @ p["wq"], hq, hd)
+    k = _split_heads(x @ p["wk"], hkv, hd)
     v = _split_heads(x @ p["wv"], hkv, hd)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     k_cache[:, pos:pos + s] = k
     v_cache[:, pos:pos + s] = v
     out = _reference_attention(q, k_cache, v_cache, causal=False,

@@ -1,10 +1,12 @@
-"""Model assembly for the dense family.
+"""Model assembly for the dense, moe, vlm and audio families.
 
-The port of ``src/repro/models/transformer.py`` for ``family == "dense"``
-(llama/qwen/yi/command-r/stablelm).  The model is an ``nn.Module`` of
-weights (:class:`DenseLM`); the functions take ``cfg`` first, as in the
-reference, and a Python loop over the blocks takes the place of
-``jax.lax.scan``.
+The port of ``src/repro/models/transformer.py`` for ``family`` in
+dense (llama/qwen/yi/command-r/stablelm), moe (grok, qwen3-moe), vlm
+(llava: dense with a patch-embedding prefix) and audio (whisper
+encoder-decoder).  The model is an ``nn.Module`` of weights
+(:class:`DenseLM` for dense, moe and vlm; :class:`EncDecLM` for audio);
+the functions take ``cfg`` first, as in the reference, and a Python loop
+over the blocks takes the place of ``jax.lax.scan``.
 
 Public API:
   init_params(cfg, generator, device=None)  -> model
@@ -14,13 +16,22 @@ Public API:
   prefill(cfg, model, batch, max_len)       -> (last_logits, cache)
   decode_step(cfg, model, cache, tokens)    -> (logits, cache)
 
-``batch`` is ``{"tokens": (B, S) integer tensor}``.  The cache is
-``{"k", "v": (L, B, max_len, Hkv, hd), "pos": int}`` and is updated in
-place.  :func:`prefill` makes one pass over the layers that fills the
-cache and unembeds the last position only, where the reference runs
-``forward`` and ``fill_cache`` and leaves XLA to share their work.
+``batch`` is ``{"tokens": (B, S) integer tensor}``, plus ``"patches"``
+(B, n_patches, D) for vlm and ``"frames"`` (B, encoder_seq, D) for audio
+(the stub frontends' embeddings, as :func:`repro_torch.models.make_batch`
+draws them).  The cache is ``{"k", "v": (L, B, max_len, Hkv, hd),
+"pos": int}`` (audio adds ``"xk", "xv": (L, B, encoder_seq, Hkv, hd)``)
+and is updated in place.  For dense, moe and vlm :func:`prefill` makes
+one pass over the layers that fills the cache and unembeds the last
+position only, where the reference runs ``forward`` and ``fill_cache``
+and leaves XLA to share their work.
 
-The other families (moe, vlm, audio, ssm, hybrid) are not ported yet.
+Audio follows the reference exactly, including its ``fill_cache``, which
+only sets ``pos``: after :func:`prefill` the self-attention and
+cross-attention caches are still zero, so decoding attends to zeros
+(ROADMAP Queue 3 records it as a fault of the reference).
+
+The ssm and hybrid families are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,25 +43,25 @@ from torch import nn
 
 from ..device import resolve_device
 from .attention import (
-    attention, attn_init, decode_attention, init_layer_cache,
+    _reference_attention, _split_heads, attention, attn_init,
+    decode_attention, init_layer_cache,
 )
 from .layers import (
-    Params, dense_init, embed_init, mlp_init, norm_apply, norm_init,
-    swiglu_mlp,
+    Params, dense_init, embed_init, gelu_mlp, mlp_init, norm_apply,
+    norm_init, swiglu_mlp,
 )
+from .moe import moe_apply, moe_init
 
 __all__ = [
-    "DenseBlock", "DenseLM", "init_params", "forward", "init_cache",
-    "fill_cache", "prefill", "decode_step",
+    "DecoderBlock", "DenseBlock", "DenseLM", "EncDecLM", "EncoderBlock",
+    "init_params", "forward", "init_cache", "fill_cache", "prefill",
+    "decode_step",
 ]
 
 #: family -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 items 9-10 (models/moe.py)",
-    "vlm": "ROADMAP Queue 1 item 10 (vlm)",
-    "audio": "ROADMAP Queue 1 item 10 (audio enc-dec)",
-    "ssm": "ROADMAP Queue 1 item 10 (ssm, models/ssm.py)",
-    "hybrid": "ROADMAP Queue 1 item 10 (hybrid, models/ssm.py)",
+    "ssm": "ROADMAP Queue 1 item 4 (ssm, models/ssm.py)",
+    "hybrid": "ROADMAP Queue 1 item 4 (hybrid, models/ssm.py)",
 }
 
 
@@ -59,18 +70,42 @@ def _dt(cfg) -> torch.dtype:
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"{_NOT_PORTED[cfg.family]}")
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm block: ln1 -> attention -> residual, ln2 -> SwiGLU MLP."""
+    """Pre-norm block: ln1 -> attention -> residual, ln2 -> SwiGLU MLP
+    (``mlp``) or mixture of experts (``moe``) -> residual."""
+
+    def __init__(self, ln1: Params, attn: Params, ln2: Params,
+                 mlp: Optional[Params] = None, moe: Optional[Params] = None):
+        super().__init__()
+        if (mlp is None) == (moe is None):
+            raise ValueError("a block has an mlp or a moe, not both")
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        self.mlp, self.moe = mlp, moe
+
+
+class EncoderBlock(nn.Module):
+    """Whisper encoder block: ln1 -> attention, ln2 -> GELU MLP."""
 
     def __init__(self, ln1: Params, attn: Params, ln2: Params, mlp: Params):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+class DecoderBlock(nn.Module):
+    """Whisper decoder block: ln1 -> causal self-attention, lnx ->
+    cross-attention on the encoder's output, ln2 -> GELU MLP."""
+
+    def __init__(self, ln1: Params, attn: Params, lnx: Params,
+                 xattn: Params, ln2: Params, mlp: Params):
+        super().__init__()
+        self.ln1, self.attn, self.lnx, self.xattn = ln1, attn, lnx, xattn
+        self.ln2, self.mlp = ln2, mlp
 
 
 class DenseLM(nn.Module):
@@ -90,25 +125,66 @@ class DenseLM(nn.Module):
         return self.embed.device
 
 
-def init_params(cfg, generator: torch.Generator,
-                device=None) -> DenseLM:
+class EncDecLM(nn.Module):
+    """Whisper: embedding (tied to the unembedding), encoder blocks and
+    their norm, decoder blocks, final norm."""
+
+    def __init__(self, embed: torch.Tensor, encoder: list, enc_norm: Params,
+                 decoder: list, final_norm: Params):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.encoder = nn.ModuleList(encoder)
+        self.enc_norm = enc_norm
+        self.decoder = nn.ModuleList(decoder)
+        self.final_norm = final_norm
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def _encdec_init(cfg, generator: torch.Generator, dtype) -> EncDecLM:
+    d, f = cfg.d_model, cfg.d_ff
+    embed = embed_init(generator, (cfg.vocab_size, d), dtype)
+    encoder = [EncoderBlock(norm_init(d, cfg.norm),
+                            attn_init(generator, cfg, dtype),
+                            norm_init(d, cfg.norm),
+                            mlp_init(generator, d, f, dtype, kind="gelu"))
+               for _ in range(cfg.encoder_layers)]
+    decoder = [DecoderBlock(norm_init(d, cfg.norm),
+                            attn_init(generator, cfg, dtype),
+                            norm_init(d, cfg.norm),
+                            attn_init(generator, cfg, dtype),
+                            norm_init(d, cfg.norm),
+                            mlp_init(generator, d, f, dtype, kind="gelu"))
+               for _ in range(cfg.n_layers)]
+    return EncDecLM(embed, encoder, norm_init(d, cfg.norm), decoder,
+                    norm_init(d, cfg.norm))
+
+
+def init_params(cfg, generator: torch.Generator, device=None):
     """Random weights drawn from ``generator`` on ``device`` (default
     ``cuda``), layer by layer, as the reference's ``init_params`` lays
-    them out (norm weights f32, the rest in ``cfg.dtype``)."""
+    them out (norm weights and the router f32, the rest in
+    ``cfg.dtype``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, weights on {dev}")
     dtype = _dt(cfg)
     with torch.device(dev):
+        if cfg.family == "audio":
+            return _encdec_init(cfg, generator, dtype)
         embed = embed_init(generator, (cfg.vocab_size, cfg.d_model), dtype)
-        layers = [
-            DenseBlock(norm_init(cfg.d_model, cfg.norm),
-                       attn_init(generator, cfg, dtype),
-                       norm_init(cfg.d_model, cfg.norm),
-                       mlp_init(generator, cfg.d_model, cfg.d_ff, dtype))
-            for _ in range(cfg.n_layers)
-        ]
+        layers = []
+        for _ in range(cfg.n_layers):
+            ln1 = norm_init(cfg.d_model, cfg.norm)
+            attn = attn_init(generator, cfg, dtype)
+            ln2 = norm_init(cfg.d_model, cfg.norm)
+            ffn = ({"moe": moe_init(generator, cfg, dtype)} if cfg.is_moe
+                   else {"mlp": mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                         dtype)})
+            layers.append(DenseBlock(ln1, attn, ln2, **ffn))
         final_norm = norm_init(cfg.d_model, cfg.norm)
         lm_head = None if cfg.tied_embeddings else dense_init(
             generator, (cfg.d_model, cfg.vocab_size), dtype=dtype)
@@ -116,12 +192,21 @@ def init_params(cfg, generator: torch.Generator,
 
 
 def _embed_inputs(cfg, model: DenseLM, batch: dict):
+    """Token embedding, after the patch prefix for vlm; positions over
+    the whole length."""
     tokens = batch["tokens"].to(model.device)
     x = model.embed[tokens].to(_dt(cfg))
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(model.device, _dt(cfg))
+        x = torch.cat([patches, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     return x, positions
+
+
+def _ffn(cfg, p: DenseBlock, h: torch.Tensor) -> torch.Tensor:
+    return moe_apply(p.moe, cfg, h) if cfg.is_moe else swiglu_mlp(p.mlp, h)
 
 
 def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
@@ -131,7 +216,7 @@ def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
     a, kv = attention(p.attn, cfg, h, positions)
     x = x + a
     h = norm_apply(p.ln2, x, cfg.norm)
-    return x + swiglu_mlp(p.mlp, h), kv
+    return x + _ffn(cfg, p, h), kv
 
 
 def _unembed(cfg, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
@@ -140,12 +225,91 @@ def _unembed(cfg, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
+# -- audio (whisper) ---------------------------------------------------------
+
+
+def _sinusoidal(s: int, d: int, device) -> torch.Tensor:
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _sinusoidal_at(pos: int, d: int, device) -> torch.Tensor:
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    ang = pos / torch.pow(10_000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :]
+
+
+def _whisper_encode(cfg, model: EncDecLM, frames: torch.Tensor
+                    ) -> torch.Tensor:
+    """frames: (B, enc_seq, D) precomputed embeddings (conv-frontend
+    stub).  Non-causal self-attention, no RoPE."""
+    dt = _dt(cfg)
+    frames = frames.to(model.device)
+    x = frames.to(dt) + _sinusoidal(frames.shape[1], cfg.d_model,
+                                    model.device).to(dt)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device).expand(x.shape[:2])
+    for p in model.encoder:
+        h = norm_apply(p.ln1, x, cfg.norm)
+        a, _ = attention(p.attn, cfg, h, positions, causal=False,
+                         use_rope=False)
+        x = x + a
+        h = norm_apply(p.ln2, x, cfg.norm)
+        x = x + gelu_mlp(p.mlp, h)
+    return norm_apply(model.enc_norm, x, cfg.norm)
+
+
+def _whisper_decode_full(cfg, model: EncDecLM, tokens: torch.Tensor,
+                         enc_out: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention, then non-causal cross-attention on
+    ``enc_out``, then the GELU MLP, in each decoder block."""
+    dt = _dt(cfg)
+    x = model.embed[tokens.to(model.device)].to(dt)
+    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(dt)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    for p in model.decoder:
+        h = norm_apply(p.ln1, x, cfg.norm)
+        a, _ = attention(p.attn, cfg, h, positions, use_rope=False)
+        x = x + a
+        h = norm_apply(p.lnx, x, cfg.norm)
+        a, _ = attention(p.xattn, cfg, h, positions, causal=False,
+                         kv_x=enc_out, use_rope=False)
+        x = x + a
+        h = norm_apply(p.ln2, x, cfg.norm)
+        x = x + gelu_mlp(p.mlp, h)
+    return x
+
+
+def _cross_decode(p, cfg, x: torch.Tensor, xk: torch.Tensor,
+                  xv: torch.Tensor) -> torch.Tensor:
+    """Cross attention against the cached encoder k/v (no cache update)."""
+    hq, hd = cfg.n_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"], hq, hd)
+    out = _reference_attention(q, xk, xv, causal=False)
+    return out.reshape(b, s, hq * hd) @ p["wo"]
+
+
+# -- the public functions -----------------------------------------------------
+
+
 @torch.no_grad()
-def forward(cfg, model: DenseLM, batch: dict, *,
+def forward(cfg, model, batch: dict, *,
             last_only: bool = False) -> torch.Tensor:
     """Full-sequence logits.  ``last_only`` unembeds the final position
     only (serving prefill needs just the next-token distribution)."""
     _check_family(cfg)
+    if cfg.family == "audio":
+        enc_out = _whisper_encode(cfg, model, batch["frames"])
+        x = _whisper_decode_full(cfg, model, batch["tokens"], enc_out)
+        if last_only:
+            x = x[:, -1:, :]
+        x = norm_apply(model.final_norm, x, cfg.norm)
+        return x @ model.embed.T          # whisper ties embeddings
     x, positions = _embed_inputs(cfg, model, batch)
     for p in model.layers:
         x, _ = _dense_block(cfg, p, x, positions)
@@ -156,19 +320,24 @@ def forward(cfg, model: DenseLM, batch: dict, *,
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     _check_family(cfg)
-    return init_layer_cache(cfg, batch, max_len, _dt(cfg),
-                            device=resolve_device(device))
+    dev = resolve_device(device)
+    cache = init_layer_cache(cfg, batch, max_len, _dt(cfg), device=dev)
+    if cfg.family == "audio":
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        cache["xk"] = torch.zeros(shape, dtype=_dt(cfg), device=dev)
+        cache["xv"] = torch.zeros(shape, dtype=_dt(cfg), device=dev)
+    return cache
 
 
 def _prefill_pass(cfg, model: DenseLM, batch: dict, cache: dict,
                   logits: bool):
     """One pass over the layers: each writes its k/v into the cache; the
     last position is unembedded when ``logits``."""
-    _check_family(cfg)
     x, positions = _embed_inputs(cfg, model, batch)
     s = x.shape[1]
     if s > cache["k"].shape[2]:
-        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+        raise ValueError(f"prompt of {s} positions exceeds the cache's "
                          f"{cache['k'].shape[2]} positions")
     for i, p in enumerate(model.layers):
         x, (k, v) = _dense_block(cfg, p, x, positions)
@@ -179,32 +348,57 @@ def _prefill_pass(cfg, model: DenseLM, batch: dict, cache: dict,
 
 
 @torch.no_grad()
-def fill_cache(cfg, model: DenseLM, batch: dict, cache: dict) -> dict:
-    """Populate the cache from a full prompt."""
+def fill_cache(cfg, model, batch: dict, cache: dict) -> dict:
+    """Populate the cache from a full prompt.  For audio, as in the
+    reference, only ``pos`` is set (to the prompt's length)."""
+    _check_family(cfg)
+    if cfg.family == "audio":
+        cache["pos"] = batch["tokens"].shape[1]
+        return cache
     return _prefill_pass(cfg, model, batch, cache, logits=False)[1]
 
 
 @torch.no_grad()
-def prefill(cfg, model: DenseLM, batch: dict, max_len: int):
+def prefill(cfg, model, batch: dict, max_len: int):
     """Run the full prompt, build the decode cache, return the last
     position's logits (B, 1, V) and the cache."""
+    _check_family(cfg)
     cache = init_cache(cfg, batch["tokens"].shape[0], max_len,
                        device=model.device)
+    if cfg.family == "audio":
+        logits = forward(cfg, model, batch, last_only=True)
+        return logits, fill_cache(cfg, model, batch, cache)
     return _prefill_pass(cfg, model, batch, cache, logits=True)
 
 
 @torch.no_grad()
-def decode_step(cfg, model: DenseLM, cache: dict, tokens: torch.Tensor):
+def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), cache)."""
     _check_family(cfg)
     pos = cache["pos"]
-    x = model.embed[tokens.to(model.device)].to(_dt(cfg))
+    dt = _dt(cfg)
+    x = model.embed[tokens.to(model.device)].to(dt)
+    if cfg.family == "audio":
+        x = x + _sinusoidal_at(pos, cfg.d_model, x.device).to(dt)
+        for i, p in enumerate(model.decoder):
+            h = norm_apply(p.ln1, x, cfg.norm)
+            a, _, _ = decode_attention(p.attn, cfg, h, cache["k"][i],
+                                       cache["v"][i], pos, use_rope=False)
+            x = x + a
+            h = norm_apply(p.lnx, x, cfg.norm)
+            x = x + _cross_decode(p.xattn, cfg, h, cache["xk"][i],
+                                  cache["xv"][i])
+            h = norm_apply(p.ln2, x, cfg.norm)
+            x = x + gelu_mlp(p.mlp, h)
+        x = norm_apply(model.final_norm, x, cfg.norm)
+        cache["pos"] = pos + 1
+        return x @ model.embed.T, cache
     for i, p in enumerate(model.layers):
         h = norm_apply(p.ln1, x, cfg.norm)
         a, _, _ = decode_attention(p.attn, cfg, h, cache["k"][i],
                                    cache["v"][i], pos)
         x = x + a
         h = norm_apply(p.ln2, x, cfg.norm)
-        x = x + swiglu_mlp(p.mlp, h)
+        x = x + _ffn(cfg, p, h)
     cache["pos"] = pos + 1
     return _unembed(cfg, model, x), cache

@@ -272,6 +272,27 @@ def test_tensor_core_kernel_takes_any_scale(card, sm_scale):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_kernel_rounds_only_its_output(card, no_tf32, d):
+    """The tensor cores take p in bf16: the kernel splits f32 p into
+    three bf16 parts (all of its 24 bits), so its output is as far from
+    the exact (f64) attention of the bf16 inputs as the plain version's
+    single bf16 rounding, on average (the f32 attention stands for the
+    exact one: its error is far below bf16's).  p rounded once to bf16
+    drifted a 32-layer model's logits past bf16's floor."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", torch.bfloat16)
+               for s in ((1, 8, 1024, d), (1, 2, 1024, d), (1, 2, 1024, d)))
+    exact = fa_ref.flash_attention(q.float(), k.float(), v.float()).double()
+    got = fa_ops.flash_attention(q, k, v)
+    assert fa_ops.route(q.dtype, d) == "tensor_core"
+    plain = fa_ref.flash_attention(q, k, v)
+    err = float((got.double() - exact).abs().mean())
+    floor = float((plain.double() - exact).abs().mean())
+    assert err <= 1.1 * floor, (err, floor)
+
+
 def test_tensor_core_route_rejects_a_misaligned_base(card):
     """A TMA map needs a 16-byte-aligned base: a view one element into a
     buffer is refused before any launch."""
@@ -332,10 +353,12 @@ def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
     assert fa_ref.counts == before[1]
 
 
-#: head_dims of the split-TF32 kernel beyond 16/32/64/128: its new
-#: instantiations (48, 80, 96, 112: zamba2-7b's) and head_dims it reaches
-#: by zero padding (1, 40, 57, 72, 100, 113, 127)
-ANY_D = [1, 40, 48, 57, 72, 80, 96, 100, 112, 113, 127]
+#: head_dims of the split-TF32 kernel beyond 16/32/64/128: its
+#: instantiations at 48, 80, 96, 112 (zamba2-7b's) and, past 128, at 144,
+#: 176, 224, 240 and 256 (two output chunks a q tile), and head_dims it
+#: reaches by zero padding (1, 40, 57, 72, 100, 113, 127, 200)
+ANY_D = [1, 40, 48, 57, 72, 80, 96, 100, 112, 113, 127, 144, 176, 200,
+         224, 240, 256]
 
 
 @pytest.mark.parametrize("d", ANY_D)
@@ -366,12 +389,54 @@ def test_smallest_head_dim_112_input_on_the_card(card, no_tf32):
                                rtol=2e-5, atol=2e-5)
 
 
+def test_smallest_head_dim_129_input_on_the_card(card, no_tf32):
+    """q, k and v of shape (1, 1, 1, 129): the smallest input the card
+    refused while the kernel stopped at head_dim 128."""
+    q, k, v = (torch.from_numpy(np.random.default_rng(129).standard_normal(
+        (1, 1, 1, 129)).astype(np.float32)).cuda() for _ in range(3))
+    before = fa_ops.counts["tf32x3"]
+    torch.testing.assert_close(fa_ops.flash_attention(q, k, v),
+                               fa_ref.flash_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    assert fa_ops.counts["tf32x3"] == before + 1
+
+
 def test_head_dim_past_the_kernels_raises_on_the_card(card):
-    q = torch.zeros((1, 2, 8, 144), device="cuda")
+    q = torch.zeros((1, 2, 8, fa_ops.MAX_HEAD_DIM + 1), device="cuda")
     before = dict(fa_ops.counts)
     with pytest.raises(ValueError, match="head_dim"):
         fa_ops.flash_attention(q, q, q)
     assert fa_ops.counts == before
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "whisper-large-v3", "qwen3-moe-235b-a22b"])
+def test_family_on_the_card_equals_its_plain_path(card, no_tf32, arch):
+    """A reduced vlm, audio and moe model in f32 on the card: the kernel
+    path (each prefill attention on the split-TF32 kernel, three a layer
+    for whisper) against the plain path, logits within 1e-4 and greedy
+    tokens equal."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import forward, init_params, make_batch
+
+    cfg = configs.reduced(configs.get_config(arch), attention_impl="pallas")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = make_batch(cfg, 2, 24, seed=0, device="cuda")
+    plain = dataclasses.replace(cfg, attention_impl="reference")
+    per_layer = 3 if cfg.family == "audio" else 1
+    before = dict(fa_ops.counts), dict(fa_ref.counts)
+    got = forward(cfg, model, batch)
+    assert fa_ops.counts["tf32x3"] == (before[0]["tf32x3"]
+                                       + per_layer * cfg.n_layers)
+    assert fa_ref.counts == before[1]
+    torch.testing.assert_close(got, forward(plain, model, batch),
+                               rtol=1e-4, atol=1e-4)
+    tokens = [chip_smoke.greedy_on_card(torch, c, model, batch, 8, 40)[0]
+              for c in (cfg, plain)]
+    np.testing.assert_array_equal(tokens[0], tokens[1])
 
 
 def test_torch_decision_engine_on_the_card_equals_numpy(card):

@@ -132,9 +132,9 @@ def test_empty_kv_gives_zeros():
 
 
 #: head_dims the JAX kernel computes and the split-TF32 kernel reaches by
-#: zero padding (40, 72) or by its own instantiation (80, 96, 112: the
-#: last is zamba2-7b's)
-ANY_D = [40, 72, 80, 96, 112]
+#: zero padding (40, 72, 200) or by its own instantiation (80, 96, 112:
+#: zamba2-7b's; 144 and 256, past 128, in two output chunks)
+ANY_D = [40, 72, 80, 96, 112, 144, 200, 256]
 
 
 @pytest.mark.parametrize("d", ANY_D)
@@ -156,21 +156,43 @@ def test_smallest_head_dim_112_input_matches_jax_kernel():
                                rtol=1e-5, atol=1e-5)
 
 
+def test_smallest_head_dim_129_input_matches_jax_kernel():
+    """q, k and v of shape (1, 1, 1, 129): the smallest input a card
+    refused while the kernel stopped at head_dim 128."""
+    q, k, v = qkv(np.random.default_rng(129), 1, 1, 1, 1, 1, 129)
+    np.testing.assert_allclose(port(q, k, v), jax_kernel(q, k, v),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (40, 48), (72, 80),
-                                    (112, 112), (113, 128), (128, 128)])
+                                    (112, 112), (113, 128), (128, 128),
+                                    (129, 144), (144, 144), (160, 160),
+                                    (192, 192), (200, 208), (255, 256),
+                                    (256, 256)])
 def test_kernel_head_dim(d, want):
     """A card call runs the instantiation at ``d`` rounded up to 16."""
     assert ops.kernel_head_dim(d) == want
     assert want in ops.HEAD_DIMS
 
 
-@pytest.mark.parametrize("d", [0, 129, 256])
+@pytest.mark.parametrize("d", [0, 257, 512])
 def test_kernel_head_dim_outside_the_kernels_raises(d):
     with pytest.raises(ValueError, match="head_dim"):
         ops.kernel_head_dim(d)
 
 
-@pytest.mark.parametrize("d", [40, 72, 112])
+@pytest.mark.parametrize("d,chunks", [(16, 1), (128, 1), (144, 2),
+                                      (208, 2), (256, 2)])
+def test_out_chunks(d, chunks):
+    """Past head_dim 128 a split-TF32 block holds one of two equal chunks
+    of the output's columns, each at most 128 and a multiple of 8 (an mma
+    n-tile)."""
+    assert ops.out_chunks(d) == chunks
+    width = d // chunks
+    assert width * chunks == d and width <= 128 and width % 8 == 0
+
+
+@pytest.mark.parametrize("d", [40, 72, 112, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_zero_padding_to_the_kernel_head_dim_changes_nothing(d, causal):
     """What the card path computes for such a D: the function on copies
@@ -301,10 +323,24 @@ def test_grid_limits(which, b, hq, lq, fits):
     """Each route's grid holds these calls, or the wrapper raises before it
     launches."""
     if fits:
-        ops._check_grid(which, b, hq, lq)
+        ops._check_grid(which, b, hq, lq, 128)
     else:
         with pytest.raises(ValueError, match="grid"):
-            ops._check_grid(which, b, hq, lq)
+            ops._check_grid(which, b, hq, lq, 128)
+
+
+@pytest.mark.parametrize("d,fits", [(128, True), (144, False),
+                                    (256, False)])
+def test_grid_limits_count_the_output_chunks(d, fits):
+    """Past head_dim 128 the split-TF32 grid holds two blocks a q tile:
+    2^30 q tiles fit one a tile, not two."""
+    args = ("tf32x3", 2 ** 16, 2 ** 8, 64 * 2 ** 6, d)
+    if fits:
+        ops._check_grid(*args)
+    else:
+        with pytest.raises(ValueError, match="grid"):
+            ops._check_grid(*args)
+    ops._check_grid("tensor_core", 2 ** 16, 2 ** 8, 128 * 2 ** 6, d)
 
 
 def tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
@@ -367,3 +403,18 @@ def test_split_tf32_keeps_f32_accuracy_and_one_tf32_product_does_not(d):
         excess[split] = float((diff - tol * want.abs()).max())
     assert excess[True] <= tol
     assert excess[False] > 10 * tol
+
+
+def test_flash_rounding_tool_finds_its_lines_in_the_kernel():
+    """``tools/flash_rounding.py --chained`` rebuilds the tensor-core
+    kernel with P.V chained through O: each line it edits is in the
+    kernel's source exactly once, and the edit removes the tile sum."""
+    from tools import flash_rounding
+
+    src = (ops._CSRC / "flash_attention_wgmma.cu").read_text()
+    chained = flash_rounding.chained_source(src)
+    assert "fmaf(o[r][i], alpha" in src
+    assert "fmaf(o[r][i], alpha" not in chained
+    assert "wgmma_m64n64k16_rs(o[r], a, dv, 1);" in chained
+    with pytest.raises(ValueError, match="no longer has"):
+        flash_rounding.chained_source(chained)

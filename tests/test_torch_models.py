@@ -152,7 +152,7 @@ def test_blocked_attention_is_not_ported():
     _, tcfg = cfg_pair("codeqwen1.5-7b", attention_impl="blocked")
     w = {k: torch.from_numpy(a)
          for k, a in _attn_weights(np.random.default_rng(0), tcfg).items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         attention.attention(w, tcfg, torch.zeros((1, 4, tcfg.d_model)),
                             torch.zeros((1, 4), dtype=torch.int32))
 
@@ -243,9 +243,7 @@ def test_make_batch_draws_the_references_tokens(arch):
                                    atol=0)
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "xlstm-1.3b",
-                                  "zamba2-7b", "whisper-large-v3",
-                                  "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
 def test_other_families_are_not_ported(arch):
     cfg = configs.reduced(configs.get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
