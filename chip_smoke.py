@@ -65,7 +65,10 @@ Phases, in order; any failure exits non-zero and none is caught:
    product at 495 TFLOP/s, with the f32 FMA bound beside it), and the
    split-TF32 kernel in f32 at head_dims 112 and 256; in bf16, the share
    of outputs the tensor-core kernel rounds unlike the plain version, and
-   its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``).
+   its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``);
+   the split-TF32 kernel in bf16 at zamba2-7b's attention shape (head_dim
+   112, phase 15's route), bound by the bf16 peak and, beside it, by the
+   TF32 products it issues.
 9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
    with the numpy engine over the SEQB client's index and the stage-2
    requests, for each heuristic (equal waves at every op); the per-op
@@ -99,7 +102,25 @@ Phases, in order; any failure exits non-zero and none is caught:
    equal (moe: rows where a near tie of two gates routed a token to other
    experts are counted and left out).  Warm prefill seconds, decode tok/s,
    peak memory and one profile each of a prefill and a decode step.
-15. One JSON line describing each ported kernel, then the result line.
+15. zamba2-7b (hybrid) at full width and depth, bf16, served as phase 6
+   serves codeqwen (``ServingEngine``, 3 requests of batch 4 x prompt
+   2,048 x 32 greedy tokens): every prefill launches the split-TF32 flash
+   kernel 13 times (once a use of the shared attention block, head_dim
+   112), never the tensor-core one or the plain version; every position's
+   bf16 logits of the first prompt meet phase 7's gate; at full width cut
+   to 13 layers (2 superblocks and a tail block) in f32 the kernel and
+   plain paths' full-sequence logits agree within 1e-3 and their greedy
+   tokens are equal; and the chunked full-sequence logits equal
+   ``decode_step`` run token by token from zero states (the shared
+   attention decoding against its growing KV cache) within 1e-3 on a
+   300-token prompt (not a multiple of the 256-position chunk).
+16. xlstm-1.3b (ssm) at full width and depth, bf16, served the same way:
+   no flash launch at all (no attention); the sLSTM time loop's share of
+   a prefill; at full width cut to 16 layers (2 superblocks) in f32 the
+   chunked-against-recurrent check of phase 15.  Phases 15-16 print
+   prefill s, decode tok/s, peak memory and one profile each of a prefill
+   and a decode step (busy share, top device operations).
+17. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -162,6 +183,10 @@ PEAK_BF16_FLOP_PER_S = 989e12
 #: TF32 products for each f32 one
 PEAK_TF32_FLOP_PER_S = 495e12
 TF32_SPLIT_PRODUCTS = 3
+#: on bf16 inputs the split-TF32 kernel issues one TF32 product for QK^T
+#: (bf16 is exact in TF32) and two for P.V (f32 p splits, v does not):
+#: 1.5 TF32 products a FLOP on average, QK^T and P.V being half each
+TF32_BF16_PRODUCTS = 1.5
 
 
 # ---------------------------------------------------------------------------
@@ -505,25 +530,42 @@ def time_ms(torch, fn: Callable[[], object], reps: int = 20) -> float:
     return statistics.median(times)
 
 
+#: traces a profile takes before it fails, where the profiler has dropped a
+#: window's device events (seen once on an H100 80GB HBM3: the s-step
+#: kernel's trace held none of its launches)
+PROFILE_ATTEMPTS = 3
+
+
 def profiled(torch, fn: Callable[[], object]) -> tuple[dict, float]:
     """Run ``fn`` under ``torch.profiler``; print the device's busy time by
     kernel and its share of the wall time, and return the busy time by
-    kernel name (us, launches) and the busy share."""
+    kernel name (us, launches) and the busy share.  A trace that holds no
+    device operation at all (the profiler has dropped the window's device
+    events) is taken again, ``PROFILE_ATTEMPTS`` times in all, then
+    fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_kernel: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t, n = by_kernel.get(e.name, (0.0, 0))
+                by_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        if by_kernel:
+            break
+        print(f"profile: trace {attempt} of {PROFILE_ATTEMPTS} holds no "
+              f"device operation")
+    else:
+        raise AssertionError(f"the profiler recorded no device operation "
+                             f"in {PROFILE_ATTEMPTS} traces")
     busy_us = sum(t for t, _ in by_kernel.values())
     print(f"profile: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall (busy share {busy_us / wall_us:.4f})")
@@ -538,29 +580,40 @@ def kernel_total(by_kernel: dict, name: str) -> tuple[float, int]:
     return sum(t for t, _ in hits) / 1e3, sum(n for _, n in hits)
 
 
-def device_work(torch, fn: Callable[[], object], reps: int = 10) -> dict:
+def device_work(torch, fn: Callable[[], object], kernel: str,
+                reps: int = 10) -> dict:
     """Under ``torch.profiler``, over ``reps`` calls of ``fn``: the device
     operations (kernels, memsets, copies) of one call and the device time
-    of one call, in all and by operation name (ms)."""
+    of one call, in all, by operation name and of the operations whose
+    name holds ``kernel`` (ms).  A trace that holds no such operation (the
+    profiler has dropped a whole window of device events on this card) is
+    taken again, ``PROFILE_ATTEMPTS`` times in all, then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    n_ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / reps / 1e3)
-            n_ops += 1
-    return {"ops": n_ops / reps, "ms": sum(by_name.values()),
-            "by_name": by_name}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        n_ops = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / reps / 1e3)
+                n_ops += 1
+        kernel_ms = sum(ms for op, ms in by_name.items() if kernel in op)
+        if kernel_ms > 0:
+            return {"ops": n_ops / reps, "ms": sum(by_name.values()),
+                    "by_name": by_name, "kernel_ms": kernel_ms}
+        print(f"device_work: trace {attempt} of {PROFILE_ATTEMPTS} holds "
+              f"no {kernel} ({n_ops} device operations)")
+    raise AssertionError(f"the profiler recorded no {kernel} in "
+                         f"{PROFILE_ATTEMPTS} traces")
 
 
 def random_words(torch, rng, shape) -> "torch.Tensor":
@@ -1118,7 +1171,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # the prefill shape on each route, then in f32 at zamba2-7b's head_dim
     # 112 and at 256, the split-TF32 kernel's widest instantiation (two
     # output chunks a q tile, each recomputing q.k over all 256 columns;
-    # the bound counts the function's work, once)
+    # the bound counts the function's work, once), and in bf16 at head_dim
+    # 112, zamba2-7b's serve path (phase 15): bound by the function's work
+    # at the bf16 peak, with the TF32 products it issues beside it
     for dtype, peak, products, d, key in (
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, d, None),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, d,
@@ -1126,7 +1181,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 112,
              "tf32x3_d112"),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 256,
-             "tf32x3_d256")):
+             "tf32x3_d256"),
+            (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, 112,
+             "tf32x3_bf16_d112")):
         flop = 4 * b * h * d * (l * (l + 1) // 2)
         which = fa_ops.route(dtype, d)
         rng = np.random.default_rng(1)
@@ -1175,6 +1232,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
         if dtype == torch.float32 and key is None:
             # the CUDA-core design's bound: f32 FMAs at 67 TFLOP/s
             out["ffma_bound_ms"] = bound_ms(n_bytes, flop)[0]
+        if which == "tf32x3" and dtype == torch.bfloat16:
+            out["issued_bound_ms"] = bound_ms(
+                n_bytes, TF32_BF16_PRODUCTS * flop, PEAK_TF32_FLOP_PER_S)[0]
         out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
                    dtype=str(dtype).split(".")[-1], rounding_share=rounding,
                    tflop_s=flop / out["ms"] / 1e9,
@@ -1190,6 +1250,10 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
               f"{peak:.3g} FLOP/s, {n_bytes} B)"
               + (f"; f32 FMA bound {out['ffma_bound_ms']:.4f} ms"
                  if "ffma_bound_ms" in out else "")
+              + (f"; bound by the TF32 products it issues "
+                 f"({TF32_BF16_PRODUCTS} a FLOP at {PEAK_TF32_FLOP_PER_S:.3g} "
+                 f"FLOP/s) {out['issued_bound_ms']:.4f} ms"
+                 if "issued_bound_ms" in out else "")
               + (f"; {rounding:.5f} of its bf16 outputs round unlike the "
                  f"plain version's" if rounding is not None else "")
               + f" [{card}]")
@@ -1437,6 +1501,11 @@ def prefetcher_phase(torch, core, serving, ops, ref, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: the f32 check of each family at full width, cut to this depth (whisper:
+#: this many encoder and decoder layers)
+F32_FAMILY_LAYERS = 2
+
+
 @dataclasses.dataclass(frozen=True)
 class FamilyPhase:
     """One family served at full width on the card through the
@@ -1444,9 +1513,10 @@ class FamilyPhase:
     name: str
     arch: str
     seq_len: int            # make_batch's seq_len (vlm: patches + tokens)
-    launches: int           # tensor-core flash launches a prefill
+    launches: int           # flash launches a prefill
     per_layer: int = 1      # flash launches a (decoder) layer
     layers: Optional[int] = None    # the depth cut; None: full depth
+    f32_layers: int = F32_FAMILY_LAYERS     # the f32 check's depth
 
 
 #: llava-next-mistral-7b at full depth: 1,152 patches + 896 tokens a row;
@@ -1461,9 +1531,6 @@ FAMILY_PHASES = (
     FamilyPhase("moe", "qwen3-moe-235b-a22b", 2048, 8, layers=8),
 )
 FAMILY_BATCH, FAMILY_NEW = 4, 32
-#: the f32 check of each family at full width, cut to this depth (whisper:
-#: this many encoder and decoder layers)
-F32_FAMILY_LAYERS = 2
 #: f32 full-sequence logits, kernel path against plain path: the
 #: split-TF32 route carries about 2^-21 of relative error a product, which
 #: gave codeqwen's 2-layer last-position logits (std about 1) 7.773e-05;
@@ -1474,6 +1541,17 @@ F32_LOGITS_TOL = 1e-3
 #: its k-th and (k+1)-th gates tie within their f32 difference: a gap in
 #: gate probability below this (typical gaps at 128 experts are about 4e-4)
 NEAR_TIE = 1e-5
+
+
+def flash_uses(cfg, per_layer: int = 1) -> int:
+    """Flash-attention calls of one full-sequence pass of ``cfg``: none
+    for ssm, one a use of the shared block for hybrid, ``per_layer`` a
+    layer for the others."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return per_layer * cfg.n_layers
 
 
 def family_cfg(spec: FamilyPhase, **overrides):
@@ -1552,7 +1630,7 @@ def rerouted_rows(torch, kernel: list, plain: list, what: str):
 
 
 def f32_family_check(torch, fa_ops, spec: FamilyPhase) -> dict:
-    """Full width cut to ``F32_FAMILY_LAYERS`` layers in f32 (the
+    """Full width cut to ``spec.f32_layers`` layers in f32 (the
     split-TF32 route): the full-sequence logits of the kernel and plain
     paths within ``F32_LOGITS_TOL``, and their greedy tokens equal.  For
     moe, rows where a near tie of two gates sent a token to another
@@ -1561,16 +1639,16 @@ def f32_family_check(torch, fa_ops, spec: FamilyPhase) -> dict:
 
     from repro_torch.models import forward, init_params, make_batch, moe
 
-    cut = {"n_layers": F32_FAMILY_LAYERS, "dtype": "float32"}
+    cut = {"n_layers": spec.f32_layers, "dtype": "float32"}
     if spec.name == "audio":
-        cut["encoder_layers"] = F32_FAMILY_LAYERS
+        cut["encoder_layers"] = spec.f32_layers
     cfg = family_cfg(spec, **cut)
     model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
                         device=DEVICE)
     batch = make_batch(cfg, FAMILY_BATCH, spec.seq_len, seed=0,
                        device=DEVICE)
     max_len = spec.seq_len + FAMILY_NEW
-    per_pass = spec.per_layer * F32_FAMILY_LAYERS
+    per_pass = flash_uses(cfg, spec.per_layer)
     logits, outs, routes = {}, {}, {}
     reset_counts(fa_ops.counts)
     for impl in ("pallas", "reference"):
@@ -1603,7 +1681,7 @@ def f32_family_check(torch, fa_ops, spec: FamilyPhase) -> dict:
     keep = clean.cpu().numpy()
     same = outs["pallas"][keep] == outs["reference"][keep]
     all_same = int((outs["pallas"] == outs["reference"]).sum())
-    print(f"{spec.name} f32, {F32_FAMILY_LAYERS} layers at full width: "
+    print(f"{spec.name} f32, {spec.f32_layers} layers at full width: "
           f"full-sequence logits {tuple(logits['pallas'].shape)} max abs diff "
           f"{diff:.3e} (tol {F32_LOGITS_TOL:g}) over {n_clean} of {b} rows"
           + (f" ({flips} token-layers routed to other experts at near ties; "
@@ -1708,6 +1786,314 @@ def family_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
             "prefill_s": warm_pre, "decode_s": warm_dec, "tok_s": tok_s,
             "peak_bytes": peak, "gate": gate, "f32": f32,
             "seconds": seconds, "params": n_params}
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and ssm families
+# ---------------------------------------------------------------------------
+
+#: zamba2-7b and xlstm-1.3b at full width and depth, served as phase 6
+#: serves codeqwen; the f32 checks at full width cut to 13 layers (zamba2:
+#: 2 superblocks of 6 Mamba2 blocks, each followed by the shared attention
+#: block, and a tail of 1) and 16 (xlstm: 2 superblocks of 7 mLSTM blocks
+#: and 1 sLSTM block).  zamba2's prefill calls the shared block 13 times
+#: (81 // 6), on the split-TF32 route (bf16 at head_dim 112); xlstm has no
+#: attention
+SSM_PHASES = (
+    FamilyPhase("hybrid", "zamba2-7b", SERVE_PROMPT, 13, f32_layers=13),
+    FamilyPhase("ssm", "xlstm-1.3b", SERVE_PROMPT, 0, f32_layers=16),
+)
+#: the chunked-against-recurrent check's prompt: not a multiple of the
+#: 256-position chunk, so the padding path runs
+RECURRENT_PROMPT = 300
+
+
+#: a block's chunked output against its decode run token by token from
+#: zero states on the same input: the reference's own tolerance for it
+#: (``tests/test_ssm.py``: rtol and atol 2e-4)
+BLOCK_TOL = 2e-4
+#: the whole model's chunked logits against ``decode_step`` token by token
+#: may differ by ``F32_LOGITS_TOL``, or, where the model's own f32
+#: sensitivity is larger, by this many times the deviation that a
+#: perturbation of the embedding table by one unit roundoff (2^-24,
+#: relative) causes in the chunked logits.  Over 16 xlstm layers and 300
+#: tokens that floor is about 1e-2 (the reference's own chunked and
+#: recurrent paths differ by as much: ``tools/ssm_sensitivity.py``)
+FLOOR_FACTOR = 2.0
+
+
+class BlockRecorder:
+    """Wraps one of ``models.ssm``'s ``*_apply`` functions and keeps each
+    call's (weights, input, output) in ``calls``."""
+
+    def __init__(self, apply):
+        self.apply, self.calls = apply, []
+
+    def __call__(self, p, cfg, x):
+        y = self.apply(p, cfg, x)
+        self.calls.append((p, x, y))
+        return y
+
+
+def block_recurrent_diffs(torch, ssm, cfg, recorded: dict) -> dict:
+    """Each recorded block call's chunked output against the block's
+    decode run token by token from zero states on the same input: kind ->
+    (max abs diff, the largest |diff| / (atol + rtol |chunked|) at
+    ``BLOCK_TOL``, blocks checked)."""
+    out = {}
+    for kind, rec in recorded.items():
+        decode = getattr(ssm, f"{kind}_decode")
+        diff = worst = 0.0
+        for p, x, y in rec.calls:
+            b = x.shape[0]
+
+            def zeros(shape, dtype=torch.float32):
+                return torch.zeros(shape, dtype=dtype, device=x.device)
+
+            if kind == "mlstm":
+                states = [zeros(ssm.mlstm_state_shape(cfg, b))]
+            elif kind == "slstm":
+                states = [tuple(zeros(ssm.slstm_state_shape(cfg, b))
+                                for _ in range(3))]
+            else:
+                st, cv = ssm.mamba2_state_shapes(cfg, b)
+                states = [zeros(st), zeros(cv, x.dtype)]
+            steps = []
+            for t in range(x.shape[1]):
+                y_t, *states = decode(p, cfg, x[:, t:t + 1], *states)
+                steps.append(y_t)
+            d = (torch.cat(steps, dim=1) - y).abs()
+            diff = max(diff, float(d.max()))
+            worst = max(worst, float((d / (BLOCK_TOL + BLOCK_TOL * y.abs()))
+                                     .max()))
+        out[kind] = (diff, worst, len(rec.calls))
+    return out
+
+
+def recurrent_check(torch, spec: FamilyPhase) -> dict:
+    """The reference's own invariant (``tests/test_ssm.py``) at full
+    width, cut to ``spec.f32_layers`` layers in f32, on a
+    ``RECURRENT_PROMPT``-token prompt.  Each SSM block's chunked output
+    in ``forward`` against its decode run token by token from zero
+    states on the same input, within ``BLOCK_TOL`` (rtol and atol, as the
+    reference's test); then the whole model: ``forward``'s full-sequence
+    logits (zamba2's attention on the flash kernel) against
+    ``decode_step`` run token by token from ``init_cache``'s zero states
+    (zamba2's shared attention decoding against its growing KV cache),
+    within ``F32_LOGITS_TOL`` or ``FLOOR_FACTOR`` times the model's own
+    f32 sensitivity, max and mean alike."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.models import (
+        decode_step, forward, init_cache, init_params, make_batch, ssm,
+    )
+
+    cfg = family_cfg(spec, n_layers=spec.f32_layers, dtype="float32")
+    if RECURRENT_PROMPT % cfg.ssm_chunk == 0:
+        raise AssertionError("the recurrent check's prompt must leave a "
+                             "padded chunk")
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    batch = make_batch(cfg, FAMILY_BATCH, RECURRENT_PROMPT, seed=0,
+                       device=DEVICE)
+    kinds = ("mlstm", "slstm") if cfg.family == "ssm" else ("mamba2",)
+    recorded = {k: BlockRecorder(getattr(ssm, f"{k}_apply")) for k in kinds}
+    with contextlib.ExitStack() as stack:
+        for k, rec in recorded.items():
+            stack.enter_context(mock.patch.object(ssm, f"{k}_apply", rec))
+        chunked = forward(cfg, model, batch)
+    if not bool(torch.isfinite(chunked).all()):
+        raise AssertionError(f"{spec.name} f32: chunked logits not finite")
+    blocks = block_recurrent_diffs(torch, ssm, cfg, recorded)
+    del recorded
+    for kind, (diff, worst, n) in blocks.items():
+        print(f"{spec.name} f32: {n} {kind} blocks at full width, chunked "
+              f"against {RECURRENT_PROMPT} decode steps from zero states on "
+              f"the same input: max abs diff {diff:.3e}, at most {worst:.4f} "
+              f"of the tolerance (rtol = atol = {BLOCK_TOL:g})")
+        if worst > 1:
+            raise AssertionError(f"{spec.name} f32: a {kind} block's chunked "
+                                 f"and recurrent outputs differ beyond "
+                                 f"{BLOCK_TOL:g}")
+
+    # the model's own f32 sensitivity: the embeddings moved by one unit
+    # roundoff
+    emb = model.embed.detach().clone()
+    noise = torch.randn(emb.shape, device=emb.device, generator=torch.Generator(
+        device=DEVICE).manual_seed(1))
+    model.embed.mul_(1 + 2.0 ** -24 * noise)
+    floor = (forward(cfg, model, batch) - chunked).abs()
+    model.embed.copy_(emb)
+    floor_max, floor_mean = float(floor.max()), float(floor.mean())
+    del floor, emb, noise
+
+    cache = init_cache(cfg, FAMILY_BATCH, RECURRENT_PROMPT, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maxes, sums = [], []
+    for t in range(RECURRENT_PROMPT):
+        logits, cache = decode_step(cfg, model, cache,
+                                    batch["tokens"][:, t:t + 1])
+        d = (logits[:, 0] - chunked[:, t]).abs()
+        maxes.append(d.max())
+        sums.append(d.sum(dtype=torch.float64))
+    diff = float(torch.stack(maxes).max())
+    mean = float(torch.stack(sums).sum()) / chunked.numel()
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    std = float(chunked.std())
+    gate_max = max(F32_LOGITS_TOL, FLOOR_FACTOR * floor_max)
+    gate_mean = max(F32_LOGITS_TOL, FLOOR_FACTOR * floor_mean)
+    print(f"{spec.name} f32, {spec.f32_layers} layers at full width: "
+          f"chunked full-sequence logits {tuple(chunked.shape)} against "
+          f"{RECURRENT_PROMPT} decode steps from zero states: max abs diff "
+          f"{diff:.3e}, mean {mean:.3e} (the logits' std {std:.4f}); the "
+          f"embeddings moved by 2^-24 move the chunked logits by max "
+          f"{floor_max:.3e}, mean {floor_mean:.3e}; gates max {gate_max:.3e},"
+          f" mean {gate_mean:.3e}; the steps took {steps_s:.2f} s")
+    if diff > gate_max or mean > gate_mean:
+        raise AssertionError(f"{spec.name} f32: the chunked and recurrent "
+                             f"logits differ by {diff:.3e} (mean {mean:.3e})"
+                             f" beyond the model's own f32 sensitivity")
+    return {"logits_max_abs_diff": diff, "logits_mean_abs_diff": mean,
+            "floor_max": floor_max, "floor_mean": floor_mean, "std": std,
+            "blocks": blocks}
+
+
+def slstm_seconds(torch, cfg, model, batch: dict, max_len: int) -> tuple:
+    """One prefill with each sLSTM block timed (a synchronize before and
+    after each): (seconds in the sLSTM blocks, seconds of the prefill)."""
+    from unittest import mock
+
+    from repro_torch.models import prefill, ssm
+
+    apply, spent = ssm.slstm_apply, []
+
+    def timed(p, c, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(p, c, x)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(ssm, "slstm_apply", timed):
+        prefill(cfg, model, batch, max_len)
+    torch.cuda.synchronize()
+    return sum(spent), time.perf_counter() - t0
+
+
+def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
+              card: str) -> dict:
+    """Phases 15-16: one family at full width and depth in bf16, random
+    weights from seed 0 made on the card, ``attention_impl="pallas"``,
+    served through ``ServingEngine`` as phase 6 serves codeqwen.  Every
+    prefill launches the split-TF32 flash kernel ``spec.launches`` times,
+    never the tensor-core one or the plain version; zamba2's bf16 logits
+    meet phase 7's gate and its f32 cut the kernel-against-plain check
+    (:func:`f32_family_check`); both families hold the
+    chunked-against-recurrent check (:func:`recurrent_check`)."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = family_cfg(spec)
+    max_len = SERVE_PROMPT + SERVE_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{spec.name}: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads"
+          + (f", shared attention {cfg.n_heads} q / {cfg.n_kv_heads} kv "
+             f"heads x {cfg.head_dim} after every {cfg.attn_every} Mamba2 "
+             f"blocks, d_ff {cfg.d_ff}, ssm_state {cfg.ssm_state}"
+             if cfg.family == "hybrid" else
+             f", one sLSTM block after every {cfg.slstm_every - 1} mLSTM "
+             f"blocks")
+          + f", ssm_chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}), "
+          f"{cfg.dtype}: {n_params} weights made on the card from seed 0 "
+          f"in {init_s:.2f} s")
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+                .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    engine = ServingEngine(cfg, model, ServeConfig(max_len=max_len),
+                           device=DEVICE)
+    want = {"flash_attention": spec.launches, "tensor_core": 0,
+            "tf32x3": spec.launches}
+    reset_counts(*count_tables)
+    outs, per_request = [], []
+    for prompts in requests:
+        before, stats = dict(fa_ops.counts), engine.stats
+        outs.append(engine.generate(prompts, SERVE_NEW))
+        after = engine.stats
+        per_request.append((after["prefill_s"] - stats["prefill_s"],
+                            after["decode_s"] - stats["decode_s"]))
+        launched = {r: fa_ops.counts[r] - before[r] for r in before}
+        if launched != want:
+            raise AssertionError(f"{spec.name}: a prefill did not launch the "
+                                 f"split-TF32 flash kernel, and only it, "
+                                 f"{spec.launches} times: {launched}")
+    counted = {"kernel": dict(fa_ops.counts), "plain": dict(fa_ref.counts)}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{spec.name} serve path counts ({SERVE_REQUESTS} requests): "
+          f"{counted}")
+    if any(counted["plain"].values()):
+        raise AssertionError(f"{spec.name}: the path ran the plain version")
+    for out in outs:
+        if out.shape != (SERVE_BATCH, SERVE_NEW) or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"{spec.name}: bad generated tokens "
+                                 f"{out.shape}")
+    for i, (pre_s, dec_s) in enumerate(per_request):
+        print(f"  request {i}: prefill {pre_s:.4f} s, decode {dec_s:.4f} s "
+              f"({SERVE_BATCH * SERVE_NEW / dec_s:.1f} tok/s) [{card}]")
+    st = engine.stats
+    print(f"{spec.name} serve totals: prefill {st['prefill_s']:.4f} s, decode "
+          f"{st['decode_s']:.4f} s, {engine.tokens_per_s:.1f} tok/s; "
+          f"max_memory_allocated {peak} B [{card}]")
+
+    batch = {"tokens": torch.as_tensor(requests[0], dtype=torch.int64,
+                                       device=DEVICE)}
+    out = {"launches": counted["kernel"]["tf32x3"], "params": n_params,
+           "prefill_s": [p for p, _ in per_request],
+           "tok_s": [SERVE_BATCH * SERVE_NEW / d for _, d in per_request],
+           "peak_bytes": peak}
+    if cfg.family == "hybrid":
+        out["gate"] = bf16_logits_gate(torch, fa_ref, cfg, model, batch,
+                                       max_len, spec.name, full=True)
+    else:
+        slstm_s, pre_s = slstm_seconds(torch, cfg, model, batch, max_len)
+        out["slstm_share"] = slstm_s / pre_s
+        print(f"{spec.name}: the sLSTM blocks' time loops took {slstm_s:.4f} "
+              f"s of a {pre_s:.4f} s prefill ({out['slstm_share']:.4f}; "
+              f"each block timed between synchronizes) [{card}]")
+    print(f"profile of one {spec.name} prefill (warm):")
+    _, out["prefill_busy_share"] = profiled(
+        torch, lambda: prefill(cfg, model, batch, max_len))
+    cache = prefill(cfg, model, batch, max_len)[1]
+    tok = torch.as_tensor(outs[0][:, :1], dtype=torch.int64, device=DEVICE)
+    print(f"profile of one {spec.name} decode step (warm, at position "
+          f"{cache['pos']}):")
+    _, out["decode_busy_share"] = profiled(
+        torch, lambda: decode_step(cfg, model, cache, tok))
+    del cache, model, engine
+    torch.cuda.empty_cache()
+    if cfg.family == "hybrid":
+        out["f32"] = f32_family_check(torch, fa_ops, spec)
+        torch.cuda.empty_cache()
+    out["recurrent"] = recurrent_check(torch, spec)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{spec.name} phase: {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1921,9 +2307,9 @@ def main(argv=None) -> int:
         listed = int((sl != 0).any(-1).sum())
         bound, by = bound_ms(k_ * s_ * w_ * 4 + s_ * w_ * 4 + k_ * 4
                              + listed * k_ * w_ * 4, listed * k_ * w_)
-        sw = device_work(torch, lambda a=sl: ops.sstep_join_support(a, cand))
-        kms = sum(ms for op, ms in sw["by_name"].items()
-                  if "sstep_join_kernel" in op)
+        sw = device_work(torch, lambda a=sl: ops.sstep_join_support(a, cand),
+                         "sstep_join_kernel")
+        kms = sw["kernel_ms"]
         sstep[where] = dict(listed=listed, bound_ms=bound, bound_by=by,
                             device_ms=sw["ms"], kernel_device_ms=kms,
                             device_ops=sw["ops"])
@@ -1934,12 +2320,10 @@ def main(argv=None) -> int:
               f"data's bound {bound:.6f} ms, {by}); dense bound "
               f"{s_dense:.6f} ms [{card}]")
     work = device_work(torch, lambda: ops.frontier_join_support(
-        slots, cand, cand_t))
+        slots, cand, cand_t), "frontier_join_kernel")
     full_work = device_work(torch, lambda: ops.frontier_join_support(
-        full_slots, full_cand, full_cand_t))
-    kernel_ms = {name: sum(ms for op, ms in w["by_name"].items()
-                           if "frontier_join_kernel" in op)
-                 for name, w in (("sparse", work), ("full", full_work))}
+        full_slots, full_cand, full_cand_t), "frontier_join_kernel")
+    kernel_ms = {"sparse": work["kernel_ms"], "full": full_work["kernel_ms"]}
     timing = {
         "frontier_join_support": dict(
             ms=time_ms(torch, lambda: ops.frontier_join_support(
@@ -2100,10 +2484,16 @@ def main(argv=None) -> int:
         families[spec.name] = family_phase(torch, fa_ops, fa_ref,
                                            count_tables, spec, card)
         phase_s[spec.name] = families[spec.name]["seconds"]
-    print("phases 9-14 seconds: " + ", ".join(
+    # -- phases 15-16: the hybrid and ssm families -----------------------
+    ssm_families = {}
+    for spec in SSM_PHASES:
+        ssm_families[spec.name] = ssm_phase(torch, fa_ops, fa_ref,
+                                            count_tables, spec, card)
+        phase_s[spec.name] = ssm_families[spec.name]["seconds"]
+    print("phases 9-16 seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in phase_s.items()))
 
-    # -- phase 15: the kernels line and the result ------------------------
+    # -- phase 17: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -2134,13 +2524,16 @@ def main(argv=None) -> int:
         cluster_warm_mine_busy_share=cluster["busy_share"],
         prefetcher_walls_s=prefetch["wall_s"],
         prefetcher_mine_busy_share=prefetch["busy_share"])
-    # the tensor-core kernel is the serve path's; the split-TF32 one runs
-    # the f32 check of phase 7
-    flash_paths = {"tensor_core": ("serve", serve_counts["kernel"]),
-                   "tf32x3": ("f32_check", {"tf32x3": f32_launches})}
+    # the tensor-core kernel is codeqwen's serve path's; the split-TF32 one
+    # zamba2's (phase 15), timed at its shape (bf16, head_dim 112)
+    hybrid = ssm_families["hybrid"]
+    flash_paths = {"tensor_core": ("serve", serve_counts["kernel"],
+                                   "tensor_core"),
+                   "tf32x3": ("zamba2_serve", {"tf32x3": hybrid["launches"]},
+                              "tf32x3_bf16_d112")}
     for which, (name, source) in FLASH_KERNELS.items():
-        path, counted = flash_paths[which]
-        t = flash[which]
+        path, counted, timed = flash_paths[which]
+        t = flash[timed]
         kernels.append({
             "name": name, "route": "cuda", "ops_route": which,
             "source": source, "replaces": FLASH_TPU_KERNEL,
@@ -2156,8 +2549,9 @@ def main(argv=None) -> int:
             **({"rounding_share": t["rounding_share"]}
                if t["rounding_share"] is not None else {}),
             "tensor_core_instructions": tc_instructions[which],
-            **{key: t[key] for key in ("ffma_bound_ms", "p_parts_ms",
-                                       "p_parts_rounding_share") if key in t},
+            **{key: t[key] for key in ("ffma_bound_ms", "issued_bound_ms",
+                                       "p_parts_ms", "p_parts_rounding_share")
+               if key in t},
         })
     # each family's path launches the tensor-core kernel; its f32 check
     # the split-TF32 one
@@ -2167,16 +2561,30 @@ def main(argv=None) -> int:
         for key in ("prefill_s", "tok_s", "peak_bytes")}, **{
         f"{name}_gate_mean_ratio": fam["gate"]["mean_ratio"]
         for name, fam in families.items()})
-    kernels[-1].update(f32_family_launches={
-        name: fam["f32"]["launches"] for name, fam in families.items()},
+    f32_families = {**families, "hybrid": hybrid}
+    kernels[-1].update(
+        f32_check_launches=f32_launches,
+        f32_family_launches={name: fam["f32"]["launches"]
+                             for name, fam in f32_families.items()},
         f32_family_logits_max_abs_diff={
-        name: fam["f32"]["logits_max_abs_diff"]
-        for name, fam in families.items()})
-    for d in (112, 256):
-        t = flash[f"tf32x3_d{d}"]
-        kernels[-1].update({f"d{d}_{key}": t[key] for key in (
+            name: fam["f32"]["logits_max_abs_diff"]
+            for name, fam in f32_families.items()},
+        recurrent_logits_max_abs_diff={
+            name: fam["recurrent"]["logits_max_abs_diff"]
+            for name, fam in ssm_families.items()},
+        hybrid_gate_mean_ratio=hybrid["gate"]["mean_ratio"],
+        **{f"{name}_{key}": fam[key] for name, fam in ssm_families.items()
+           for key in ("prefill_s", "tok_s", "peak_bytes",
+                       "prefill_busy_share", "decode_busy_share")},
+        ssm_slstm_share=ssm_families["ssm"]["slstm_share"])
+    # the same kernel at the prefill shape in f32 (D 128), at D 112 and at
+    # D 256
+    for key, prefix in (("tf32x3", "f32_d128"), ("tf32x3_d112", "d112"),
+                        ("tf32x3_d256", "d256")):
+        t = flash[key]
+        kernels[-1].update({f"{prefix}_{k}": t[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
-            "shape")})
+            "shape") if k in t})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

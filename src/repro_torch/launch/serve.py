@@ -9,6 +9,12 @@ On the CPU, at the reduced size the tests use:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 
+``--arch`` takes every architecture whose model takes tokens only: the
+dense and moe ones, xlstm-1.3b (ssm) and zamba2-7b (hybrid), for example
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --batch 4 --prompt-len 2048 --new-tokens 32
+
 Unlike the reference, whose ``--reduced`` cannot be turned off, the full
 configuration is the default and ``--reduced`` opts in.  Weights are drawn
 from ``--seed`` on the device, layer by layer; prompts from numpy's

@@ -3,8 +3,9 @@
 ``params_from_jax`` takes the JAX package's layer-stacked parameter tree,
 already turned into nested dicts of numpy arrays by the caller (this
 module never imports jax), and builds the port's :class:`DenseLM` (dense,
-moe, vlm) or :class:`EncDecLM` (audio) with the same weights in the same
-``(in, out)`` orientation.
+moe, vlm), :class:`EncDecLM` (audio), :class:`XLSTMLM` (ssm) or
+:class:`ZambaLM` (hybrid) with the same weights in the same ``(in,
+out)`` orientation.
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import ssm
 from .layers import Params
 from .transformer import (
-    DecoderBlock, DenseBlock, DenseLM, EncDecLM, EncoderBlock, _check_family,
+    DecoderBlock, DenseBlock, DenseLM, EncDecLM, EncoderBlock, XLSTMLM,
+    ZambaLM, xlstm_layout, zamba_layout,
 )
 
 __all__ = ["params_from_jax"]
@@ -29,42 +32,91 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _params(tree: dict, device: torch.device, layer=None) -> Params:
-    return Params(**{name: _tensor(a if layer is None else a[layer], device)
-                     for name, a in tree.items()})
+def _params(tree: dict, device: torch.device, index=(), cls=Params):
+    """``cls`` of the tree's arrays, each indexed by ``index`` (its
+    position on the stacked leading axes); a nested dict becomes a
+    nested :class:`Params`."""
+    return cls(**{name: (_params(a, device, index) if isinstance(a, dict)
+                         else _tensor(np.asarray(a)[index], device))
+                  for name, a in tree.items()})
+
+
+def _stacked(tree: dict, want: tuple) -> None:
+    """Check the tree's leading (stacked) axes against ``cfg``'s."""
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    got = np.asarray(leaf).shape[:len(want)]
+    if got != want:
+        raise ValueError(f"tree has {got} stacked blocks, cfg {want}")
 
 
 def _blocks(block, stacked: dict, n: int, device: torch.device) -> list:
     """``n`` blocks of class ``block``, each taking its layer of every
     group of ``stacked`` (a tree whose arrays have a leading L axis)."""
-    got = np.asarray(stacked["attn"]["wq"]).shape[0]
-    if got != n:
-        raise ValueError(f"tree has {got} layers, cfg {n}")
+    _stacked(stacked, (n,))
     return [block(**{name: _params(group, device, i)
                      for name, group in stacked.items()})
             for i in range(n)]
 
 
+def _ssm_blocks(cls, stacked: dict, n_sb: int, per: int,
+                device: torch.device) -> list:
+    """(n_sb, per) blocks of ``cls`` from a tree stacked on both axes."""
+    _stacked(stacked, (n_sb, per))
+    return [[_params(stacked, device, (sb, i), cls) for i in range(per)]
+            for sb in range(n_sb)]
+
+
 def params_from_jax(cfg, tree: dict, device=None):
-    """``tree``: for dense, moe and vlm ``{"embed", "layers": {"ln1",
-    "attn": {wq, wk, wv, wo}, "ln2", "mlp": {w1, w3, w2} or "moe":
-    {router, w1, w3, w2}}, "final_norm", "lm_head"}`` (``lm_head`` absent
-    when the embeddings are tied); for audio ``{"embed", "encoder":
-    {"ln1", "attn", "ln2", "mlp": {w1, w2}}, "enc_norm", "decoder":
-    {"ln1", "attn", "lnx", "xattn", "ln2", "mlp"}, "final_norm"}``; of
-    numpy arrays, each of ``layers``, ``encoder`` and ``decoder`` with a
-    leading L axis."""
-    _check_family(cfg)
+    """``tree``, of numpy arrays:
+
+    * dense, moe, vlm: ``{"embed", "layers": {"ln1", "attn": {wq, wk, wv,
+      wo}, "ln2", "mlp": {w1, w3, w2} or "moe": {router, w1, w3, w2}},
+      "final_norm", "lm_head"}`` (``lm_head`` absent when the embeddings
+      are tied), ``layers`` with a leading L axis;
+    * audio: ``{"embed", "encoder": {"ln1", "attn", "ln2", "mlp": {w1,
+      w2}}, "enc_norm", "decoder": {"ln1", "attn", "lnx", "xattn", "ln2",
+      "mlp"}, "final_norm"}``, the stacks with a leading L axis;
+    * ssm: ``{"embed", "mblocks", "sblocks", "final_norm", "lm_head"}``,
+      ``mblocks`` (mLSTM) stacked (n_sb, m_per, ...) and ``sblocks``
+      (sLSTM) (n_sb, ...);
+    * hybrid: ``{"embed", "mamba_sb", "mamba_tail", "shared_attn",
+      "final_norm", "lm_head"}``, ``mamba_sb`` stacked (n_sb, per, ...),
+      ``mamba_tail`` (tail, ...) and ``shared_attn`` (``{"ln1", "attn",
+      "ln2", "mlp"}``) one block, unstacked."""
     dev = resolve_device(device)
+    embed = _tensor(tree["embed"], dev)
+    final_norm = _params(tree["final_norm"], dev)
     if cfg.family == "audio":
         return EncDecLM(
-            _tensor(tree["embed"], dev),
+            embed,
             _blocks(EncoderBlock, tree["encoder"], cfg.encoder_layers, dev),
             _params(tree["enc_norm"], dev),
             _blocks(DecoderBlock, tree["decoder"], cfg.n_layers, dev),
-            _params(tree["final_norm"], dev))
+            final_norm)
     head = tree.get("lm_head")
-    return DenseLM(_tensor(tree["embed"], dev),
-                   _blocks(DenseBlock, tree["layers"], cfg.n_layers, dev),
-                   _params(tree["final_norm"], dev),
-                   None if head is None else _tensor(head, dev))
+    head = None if head is None else _tensor(head, dev)
+    if cfg.family == "ssm":
+        n_sb, m_per = xlstm_layout(cfg)
+        _stacked(tree["sblocks"], (n_sb,))
+        return XLSTMLM(
+            embed,
+            _ssm_blocks(ssm.MLSTMBlock, tree["mblocks"], n_sb, m_per, dev),
+            [_params(tree["sblocks"], dev, sb, ssm.SLSTMBlock)
+             for sb in range(n_sb)],
+            final_norm, head)
+    if cfg.family == "hybrid":
+        n_sb, per, tail = zamba_layout(cfg)
+        _stacked(tree["mamba_tail"], (tail,))
+        return ZambaLM(
+            embed,
+            _ssm_blocks(ssm.Mamba2Block, tree["mamba_sb"], n_sb, per, dev),
+            [_params(tree["mamba_tail"], dev, i, ssm.Mamba2Block)
+             for i in range(tail)],
+            DenseBlock(**{name: _params(group, dev)
+                          for name, group in tree["shared_attn"].items()}),
+            final_norm, head)
+    return DenseLM(embed, _blocks(DenseBlock, tree["layers"], cfg.n_layers,
+                                  dev),
+                   final_norm, head)

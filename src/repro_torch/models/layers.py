@@ -13,6 +13,8 @@ explicit ``torch.Generator`` on the device the weights are made on.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -25,28 +27,36 @@ __all__ = [
 
 class Params(nn.Module):
     """A named group of weights (no ``forward``): ``p["w"]`` is ``p.w``.
+    A value that is itself a module (a norm's ``Params`` inside a block)
+    is kept as a submodule.
 
     Weights are inference-only (``requires_grad=False``): training is not
     ported yet."""
 
-    def __init__(self, **tensors: torch.Tensor):
+    def __init__(self, **tensors):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, nn.Module):
+                self.add_module(name, t)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
 
 
 def dense_init(generator: torch.Generator, shape,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, scale: Optional[float] = None
+               ) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun), truncated at ±2 as
-    ``jax.random.truncated_normal(-2, 2)``; drawn in f32 on the
-    generator's device, then cast."""
+    ``jax.random.truncated_normal(-2, 2)``, times ``scale`` (default
+    ``fan_in ** -0.5``); drawn in f32 on the generator's device, then
+    cast."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return w.mul_(fan_in ** -0.5).to(dtype)
+    return w.mul_(fan_in ** -0.5 if scale is None else scale).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape,

@@ -1,16 +1,20 @@
-"""Model assembly for the dense, moe, vlm and audio families.
+"""Model assembly for every family.
 
 The port of ``src/repro/models/transformer.py`` for ``family`` in
 dense (llama/qwen/yi/command-r/stablelm), moe (grok, qwen3-moe), vlm
-(llava: dense with a patch-embedding prefix) and audio (whisper
-encoder-decoder).  The model is an ``nn.Module`` of weights
-(:class:`DenseLM` for dense, moe and vlm; :class:`EncDecLM` for audio);
-the functions take ``cfg`` first, as in the reference, and a Python loop
-over the blocks takes the place of ``jax.lax.scan``.
+(llava: dense with a patch-embedding prefix), audio (whisper
+encoder-decoder), ssm (xlstm: superblocks of mLSTM blocks and one sLSTM
+block) and hybrid (zamba2: Mamba2 superblocks, each followed by one
+shared attention+MLP block, then a tail of Mamba2 blocks).  The model is
+an ``nn.Module`` of weights (:class:`DenseLM` for dense, moe and vlm;
+:class:`EncDecLM` for audio; :class:`XLSTMLM` for ssm; :class:`ZambaLM`
+for hybrid); the functions take ``cfg`` first, as in the reference, and a
+Python loop over the blocks takes the place of ``jax.lax.scan``.
 
 Public API:
   init_params(cfg, generator, device=None)  -> model
   forward(cfg, model, batch, last_only=)    -> logits
+  loss_fn(cfg, model, batch)                -> (loss, metrics)
   init_cache(cfg, batch, max_len, device=)  -> decode cache
   fill_cache(cfg, model, batch, cache)      -> cache
   prefill(cfg, model, batch, max_len)       -> (last_logits, cache)
@@ -19,19 +23,28 @@ Public API:
 ``batch`` is ``{"tokens": (B, S) integer tensor}``, plus ``"patches"``
 (B, n_patches, D) for vlm and ``"frames"`` (B, encoder_seq, D) for audio
 (the stub frontends' embeddings, as :func:`repro_torch.models.make_batch`
-draws them).  The cache is ``{"k", "v": (L, B, max_len, Hkv, hd),
-"pos": int}`` (audio adds ``"xk", "xv": (L, B, encoder_seq, Hkv, hd)``)
-and is updated in place.  For dense, moe and vlm :func:`prefill` makes
-one pass over the layers that fills the cache and unembeds the last
-position only, where the reference runs ``forward`` and ``fill_cache``
-and leaves XLA to share their work.
+draws them).  The cache keeps the reference's keys and shapes and is
+updated in place:
 
-Audio follows the reference exactly, including its ``fill_cache``, which
-only sets ``pos``: after :func:`prefill` the self-attention and
-cross-attention caches are still zero, so decoding attends to zeros
-(ROADMAP Queue 3 records it as a fault of the reference).
+* dense, moe, vlm: ``{"k", "v": (L, B, max_len, Hkv, hd), "pos": int}``;
+* audio adds ``"xk", "xv": (L, B, encoder_seq, Hkv, hd)``;
+* ssm: ``{"m": (n_sb, m_per, B, H, dk, dv + 1), "s_c", "s_n", "s_h":
+  (n_sb, B, H, dh), "pos"}``, f32;
+* hybrid: ``{"m": (n_sb, per, B, H, N, dh)`` f32, ``"conv": (n_sb, per,
+  B, 3, Di)``, ``"m_tail"``, ``"conv_tail"`` (the same with a leading
+  tail axis), ``"k", "v": (n_sb, B, max_len, Hkv, hd), "pos"}``.
 
-The ssm and hybrid families are not ported yet.
+For dense, moe and vlm :func:`prefill` makes one pass over the layers
+that fills the cache and unembeds the last position only, where the
+reference runs ``forward`` and ``fill_cache`` and leaves XLA to share
+their work.
+
+Audio, ssm and hybrid follow the reference exactly, including its
+``fill_cache``, which only sets ``pos``: after :func:`prefill` the
+attention caches and the SSM and conv states are still zero, so decoding
+starts from zeros (ROADMAP Queue 3 records it as a fault of the
+reference).  Their :func:`prefill` unembeds the last position only; the
+reference unembeds every position and keeps the last, the same values.
 """
 
 from __future__ import annotations
@@ -50,30 +63,35 @@ from .layers import (
     Params, dense_init, embed_init, gelu_mlp, mlp_init, norm_apply,
     norm_init, swiglu_mlp,
 )
+from . import ssm
 from .moe import moe_apply, moe_init
 
 __all__ = [
     "DecoderBlock", "DenseBlock", "DenseLM", "EncDecLM", "EncoderBlock",
-    "init_params", "forward", "init_cache", "fill_cache", "prefill",
-    "decode_step",
+    "XLSTMLM", "ZambaLM", "init_params", "forward", "loss_fn",
+    "init_cache", "fill_cache", "prefill", "decode_step",
 ]
 
-#: family -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "ssm": "ROADMAP Queue 1 item 4 (ssm, models/ssm.py)",
-    "hybrid": "ROADMAP Queue 1 item 4 (hybrid, models/ssm.py)",
-}
+
+#: families whose ``fill_cache`` sets only ``pos``, as the reference's
+_POS_ONLY_FILL = ("audio", "ssm", "hybrid")
 
 
 def _dt(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_family(cfg) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}")
+def xlstm_layout(cfg) -> tuple:
+    """(superblocks, mLSTM blocks a superblock): each superblock ends in
+    one sLSTM block."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def zamba_layout(cfg) -> tuple:
+    """(superblocks, Mamba2 blocks a superblock, tail blocks): the shared
+    attention block follows each superblock."""
+    n_sb = cfg.n_layers // cfg.attn_every
+    return n_sb, cfg.attn_every, cfg.n_layers - n_sb * cfg.attn_every
 
 
 class DenseBlock(nn.Module):
@@ -143,6 +161,48 @@ class EncDecLM(nn.Module):
         return self.embed.device
 
 
+class XLSTMLM(nn.Module):
+    """xLSTM: embedding, superblocks of mLSTM blocks (``mblocks[sb][i]``)
+    each followed by one sLSTM block (``sblocks[sb]``), final norm and
+    the LM head."""
+
+    def __init__(self, embed: torch.Tensor, mblocks: list, sblocks: list,
+                 final_norm: Params, lm_head: torch.Tensor):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.mblocks = nn.ModuleList(nn.ModuleList(sb) for sb in mblocks)
+        self.sblocks = nn.ModuleList(sblocks)
+        self.final_norm = final_norm
+        self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+class ZambaLM(nn.Module):
+    """Zamba2: embedding, superblocks of Mamba2 blocks (``mamba_sb[sb][i]``)
+    each followed by the ONE shared attention+MLP block
+    (``shared_attn``, a :class:`DenseBlock` whose weights every use
+    shares), a tail of Mamba2 blocks (``mamba_tail``), final norm and the
+    LM head."""
+
+    def __init__(self, embed: torch.Tensor, mamba_sb: list,
+                 mamba_tail: list, shared_attn: DenseBlock,
+                 final_norm: Params, lm_head: torch.Tensor):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.mamba_sb = nn.ModuleList(nn.ModuleList(sb) for sb in mamba_sb)
+        self.mamba_tail = nn.ModuleList(mamba_tail)
+        self.shared_attn = shared_attn
+        self.final_norm = final_norm
+        self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
 def _encdec_init(cfg, generator: torch.Generator, dtype) -> EncDecLM:
     d, f = cfg.d_model, cfg.d_ff
     embed = embed_init(generator, (cfg.vocab_size, d), dtype)
@@ -162,12 +222,39 @@ def _encdec_init(cfg, generator: torch.Generator, dtype) -> EncDecLM:
                     norm_init(d, cfg.norm))
 
 
+def _xlstm_init(cfg, generator: torch.Generator, dtype) -> XLSTMLM:
+    n_sb, m_per = xlstm_layout(cfg)
+    embed = embed_init(generator, (cfg.vocab_size, cfg.d_model), dtype)
+    mblocks = [[ssm.mlstm_init(generator, cfg, dtype) for _ in range(m_per)]
+               for _ in range(n_sb)]
+    sblocks = [ssm.slstm_init(generator, cfg, dtype) for _ in range(n_sb)]
+    return XLSTMLM(embed, mblocks, sblocks, norm_init(cfg.d_model, cfg.norm),
+                   dense_init(generator, (cfg.d_model, cfg.vocab_size),
+                              dtype=dtype))
+
+
+def _zamba_init(cfg, generator: torch.Generator, dtype) -> ZambaLM:
+    n_sb, per, tail = zamba_layout(cfg)
+    d = cfg.d_model
+    embed = embed_init(generator, (cfg.vocab_size, d), dtype)
+    mamba_sb = [[ssm.mamba2_init(generator, cfg, dtype) for _ in range(per)]
+                for _ in range(n_sb)]
+    mamba_tail = [ssm.mamba2_init(generator, cfg, dtype)
+                  for _ in range(tail)]
+    shared = DenseBlock(norm_init(d, cfg.norm),
+                        attn_init(generator, cfg, dtype),
+                        norm_init(d, cfg.norm),
+                        mlp=mlp_init(generator, d, cfg.d_ff, dtype))
+    return ZambaLM(embed, mamba_sb, mamba_tail, shared,
+                   norm_init(d, cfg.norm),
+                   dense_init(generator, (d, cfg.vocab_size), dtype=dtype))
+
+
 def init_params(cfg, generator: torch.Generator, device=None):
     """Random weights drawn from ``generator`` on ``device`` (default
     ``cuda``), layer by layer, as the reference's ``init_params`` lays
-    them out (norm weights and the router f32, the rest in
+    them out (norm weights, the router and the SSM gates f32, the rest in
     ``cfg.dtype``)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, weights on {dev}")
@@ -175,6 +262,10 @@ def init_params(cfg, generator: torch.Generator, device=None):
     with torch.device(dev):
         if cfg.family == "audio":
             return _encdec_init(cfg, generator, dtype)
+        if cfg.family == "ssm":
+            return _xlstm_init(cfg, generator, dtype)
+        if cfg.family == "hybrid":
+            return _zamba_init(cfg, generator, dtype)
         embed = embed_init(generator, (cfg.vocab_size, cfg.d_model), dtype)
         layers = []
         for _ in range(cfg.n_layers):
@@ -302,7 +393,6 @@ def forward(cfg, model, batch: dict, *,
             last_only: bool = False) -> torch.Tensor:
     """Full-sequence logits.  ``last_only`` unembeds the final position
     only (serving prefill needs just the next-token distribution)."""
-    _check_family(cfg)
     if cfg.family == "audio":
         enc_out = _whisper_encode(cfg, model, batch["frames"])
         x = _whisper_decode_full(cfg, model, batch["tokens"], enc_out)
@@ -311,16 +401,78 @@ def forward(cfg, model, batch: dict, *,
         x = norm_apply(model.final_norm, x, cfg.norm)
         return x @ model.embed.T          # whisper ties embeddings
     x, positions = _embed_inputs(cfg, model, batch)
-    for p in model.layers:
-        x, _ = _dense_block(cfg, p, x, positions)
+    x = _backbone_full(cfg, model, x, positions)
     if last_only:
         x = x[:, -1:, :]
     return _unembed(cfg, model, x)
 
 
+def _backbone_full(cfg, model, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence pass through the blocks (train / prefill)."""
+    if cfg.family == "ssm":
+        for mblocks, sblock in zip(model.mblocks, model.sblocks):
+            for p in mblocks:
+                x = ssm.mlstm_apply(p, cfg, x)
+            x = ssm.slstm_apply(sblock, cfg, x)
+        return x
+    if cfg.family == "hybrid":
+        for mblocks in model.mamba_sb:
+            for p in mblocks:
+                x = ssm.mamba2_apply(p, cfg, x)
+            x, _ = _dense_block(cfg, model.shared_attn, x, positions)
+        for p in model.mamba_tail:
+            x = ssm.mamba2_apply(p, cfg, x)
+        return x
+    for p in model.layers:
+        x, _ = _dense_block(cfg, p, x, positions)
+    return x
+
+
+@torch.no_grad()
+def loss_fn(cfg, model, batch: dict):
+    """Next-token cross entropy, the mean over every (row, position) but
+    the last; for vlm only the text positions count.  Returns (loss,
+    {"loss", "perplexity"}), f32 scalars.  Forward only: training is not
+    ported yet."""
+    logits = forward(cfg, model, batch).float()
+    tokens = batch["tokens"].to(model.device)
+    if cfg.family == "vlm":
+        logits = logits[:, cfg.n_patches:, :]            # text segment
+    shift_logits = logits[:, :-1]
+    shift_labels = tokens[:, 1:].long()
+    logz = torch.logsumexp(shift_logits, dim=-1)
+    gold = torch.gather(shift_logits, -1, shift_labels[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll, {"loss": nll, "perplexity": torch.exp(nll)}
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
-    _check_family(cfg)
     dev = resolve_device(device)
+    f32 = torch.float32
+    if cfg.family == "ssm":
+        n_sb, m_per = xlstm_layout(cfg)
+        ms = ssm.mlstm_state_shape(cfg, batch)
+        ss = ssm.slstm_state_shape(cfg, batch)
+        return {
+            "m": torch.zeros((n_sb, m_per, *ms), dtype=f32, device=dev),
+            **{name: torch.zeros((n_sb, *ss), dtype=f32, device=dev)
+               for name in ("s_c", "s_n", "s_h")},
+            "pos": 0,
+        }
+    if cfg.family == "hybrid":
+        n_sb, per, tail = zamba_layout(cfg)
+        st, cv = ssm.mamba2_state_shapes(cfg, batch)
+        kv = (n_sb, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "m": torch.zeros((n_sb, per, *st), dtype=f32, device=dev),
+            "conv": torch.zeros((n_sb, per, *cv), dtype=_dt(cfg), device=dev),
+            "m_tail": torch.zeros((tail, *st), dtype=f32, device=dev),
+            "conv_tail": torch.zeros((tail, *cv), dtype=_dt(cfg), device=dev),
+            "k": torch.zeros(kv, dtype=_dt(cfg), device=dev),
+            "v": torch.zeros(kv, dtype=_dt(cfg), device=dev),
+            "pos": 0,
+        }
     cache = init_layer_cache(cfg, batch, max_len, _dt(cfg), device=dev)
     if cfg.family == "audio":
         shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
@@ -349,10 +501,9 @@ def _prefill_pass(cfg, model: DenseLM, batch: dict, cache: dict,
 
 @torch.no_grad()
 def fill_cache(cfg, model, batch: dict, cache: dict) -> dict:
-    """Populate the cache from a full prompt.  For audio, as in the
-    reference, only ``pos`` is set (to the prompt's length)."""
-    _check_family(cfg)
-    if cfg.family == "audio":
+    """Populate the cache from a full prompt.  For audio, ssm and hybrid,
+    as in the reference, only ``pos`` is set (to the prompt's length)."""
+    if cfg.family in _POS_ONLY_FILL:
         cache["pos"] = batch["tokens"].shape[1]
         return cache
     return _prefill_pass(cfg, model, batch, cache, logits=False)[1]
@@ -362,10 +513,9 @@ def fill_cache(cfg, model, batch: dict, cache: dict) -> dict:
 def prefill(cfg, model, batch: dict, max_len: int):
     """Run the full prompt, build the decode cache, return the last
     position's logits (B, 1, V) and the cache."""
-    _check_family(cfg)
     cache = init_cache(cfg, batch["tokens"].shape[0], max_len,
                        device=model.device)
-    if cfg.family == "audio":
+    if cfg.family in _POS_ONLY_FILL:
         logits = forward(cfg, model, batch, last_only=True)
         return logits, fill_cache(cfg, model, batch, cache)
     return _prefill_pass(cfg, model, batch, cache, logits=True)
@@ -374,10 +524,17 @@ def prefill(cfg, model, batch: dict, max_len: int):
 @torch.no_grad()
 def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), cache)."""
-    _check_family(cfg)
     pos = cache["pos"]
     dt = _dt(cfg)
     x = model.embed[tokens.to(model.device)].to(dt)
+    if cfg.family == "ssm":
+        x = _xlstm_decode(cfg, model, cache, x)
+        cache["pos"] = pos + 1
+        return _unembed(cfg, model, x), cache
+    if cfg.family == "hybrid":
+        x = _zamba_decode(cfg, model, cache, x, pos)
+        cache["pos"] = pos + 1
+        return _unembed(cfg, model, x), cache
     if cfg.family == "audio":
         x = x + _sinusoidal_at(pos, cfg.d_model, x.device).to(dt)
         for i, p in enumerate(model.decoder):
@@ -402,3 +559,44 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
         x = x + _ffn(cfg, p, h)
     cache["pos"] = pos + 1
     return _unembed(cfg, model, x), cache
+
+
+def _xlstm_decode(cfg, model: XLSTMLM, cache: dict,
+                  x: torch.Tensor) -> torch.Tensor:
+    """One token through every block, each state updated in place."""
+    for sb, (mblocks, sblock) in enumerate(zip(model.mblocks, model.sblocks)):
+        for i, p in enumerate(mblocks):
+            x, st = ssm.mlstm_decode(p, cfg, x, cache["m"][sb, i])
+            cache["m"][sb, i] = st
+        carry = tuple(cache[name][sb] for name in ("s_c", "s_n", "s_h"))
+        x, carry = ssm.slstm_decode(sblock, cfg, x, carry)
+        for name, st in zip(("s_c", "s_n", "s_h"), carry):
+            cache[name][sb] = st
+    return x
+
+
+def _zamba_decode(cfg, model: ZambaLM, cache: dict, x: torch.Tensor,
+                  pos: int) -> torch.Tensor:
+    """One token through every block: the Mamba2 states and conv windows
+    updated in place, the shared block's attention against superblock
+    ``sb``'s KV cache, written in place at ``pos``."""
+    shared = model.shared_attn
+
+    def mamba(p, x, state, conv):
+        y, st, cv = ssm.mamba2_decode(p, cfg, x, state, conv)
+        state.copy_(st)
+        conv.copy_(cv)
+        return y
+
+    for sb, mblocks in enumerate(model.mamba_sb):
+        for i, p in enumerate(mblocks):
+            x = mamba(p, x, cache["m"][sb, i], cache["conv"][sb, i])
+        h = norm_apply(shared.ln1, x, cfg.norm)
+        a, _, _ = decode_attention(shared.attn, cfg, h, cache["k"][sb],
+                                   cache["v"][sb], pos)
+        x = x + a
+        h = norm_apply(shared.ln2, x, cfg.norm)
+        x = x + swiglu_mlp(shared.mlp, h)
+    for i, p in enumerate(model.mamba_tail):
+        x = mamba(p, x, cache["m_tail"][i], cache["conv_tail"][i])
+    return x

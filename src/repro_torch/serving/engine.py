@@ -1,10 +1,12 @@
 """Batched serving engine: prefill + decode loop with sampling.
 
 The port of ``src/repro/serving/engine.py``.  A request is one prefill
-(one pass over the layers that fills the KV cache and unembeds the last
-position; with ``attention_impl="pallas"`` every layer's attention runs
-the Hopper flash-attention kernel) and then one ``decode_step`` per new
-token, with the cache kept on the device and updated in place.
+(for dense and moe one pass over the layers that fills the KV cache and
+unembeds the last position; for ssm and hybrid the chunked full-sequence
+pass, with the cache left as the reference's ``fill_cache`` leaves it;
+with ``attention_impl="pallas"`` every prefill attention runs a Hopper
+flash-attention kernel) and then one ``decode_step`` per new token, with
+the cache kept on the device and updated in place.
 
 Sampling: greedy ``argmax`` (the first maximum, as ``jnp.argmax``) when
 ``temperature <= 0``; otherwise a categorical draw from a
@@ -47,8 +49,11 @@ class ServeConfig:
 
 
 class ServingEngine:
-    """Serves ``model`` (a :class:`repro_torch.models.DenseLM`) on
-    ``device`` (default ``cuda``; the model must already be there)."""
+    """Serves ``model`` (a model of a family that takes tokens only:
+    :class:`repro_torch.models.DenseLM` for dense and moe,
+    :class:`~repro_torch.models.XLSTMLM` for ssm,
+    :class:`~repro_torch.models.ZambaLM` for hybrid) on ``device``
+    (default ``cuda``; the model must already be there)."""
 
     def __init__(self, cfg, model, serve_cfg: Optional[ServeConfig] = None,
                  device=None):

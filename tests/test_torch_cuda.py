@@ -500,3 +500,57 @@ def test_expert_prefetcher_on_the_card_as_on_the_cpu(card):
                                         device="cpu")
     for key in ("lats", "mined", "stats", "exchanged"):
         assert on_card[key] == on_cpu[key], key
+
+
+def test_tf32x3_kernel_in_bf16_at_zamba2s_attention_shape(card, no_tf32):
+    """zamba2-7b's shared attention as its prefill calls it: bf16, B 4,
+    32 q and kv heads, 2,048 positions, head_dim 112, causal, on the
+    model's (B, S, H, D) layout viewed as (B, H, S, D).  It takes the
+    split-TF32 route, within bf16's 2e-2 of the plain version."""
+    rng = np.random.default_rng(112)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 2048, 32, 112))
+                                .astype(np.float32)).to("cuda", torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    assert fa_ops.route(torch.bfloat16, 112) == "tf32x3"
+    before = dict(fa_ops.counts)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["tf32x3"] == before["tf32x3"] + 1
+    assert fa_ops.counts["tensor_core"] == before["tensor_core"]
+    want = fa_ref.flash_attention(q, k, v)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("arch,overrides", [("xlstm-1.3b", {}),
+                                            ("zamba2-7b", {"n_layers": 5})])
+def test_ssm_and_hybrid_on_the_card_equal_the_cpu(card, no_tf32, arch,
+                                                  overrides):
+    """Reduced xlstm and zamba2 (5 layers: two superblocks and a tail
+    block) in f32: the card's full-sequence logits within 1e-4 of the
+    CPU's and its greedy tokens equal; zamba2's prefill launches the
+    split-TF32 kernel once a shared-attention use."""
+    from repro_torch import configs
+    from repro_torch.models import forward, init_params, make_batch
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = configs.reduced(configs.get_config(arch), attention_impl="pallas",
+                          **overrides)
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = make_batch(cfg, 2, 24, seed=0, device="cpu")
+    want = forward(cfg, model, batch)
+    prompts = batch["tokens"].numpy()
+    on_cpu = ServingEngine(cfg, model, ServeConfig(max_len=32),
+                           device="cpu").generate(prompts, 8)
+    model = model.cuda()
+    uses = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    before = dict(fa_ops.counts), dict(fa_ref.counts)
+    got = forward(cfg, model, {"tokens": batch["tokens"].cuda()})
+    assert fa_ops.counts["tf32x3"] == before[0]["tf32x3"] + uses
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    on_card = ServingEngine(cfg, model, ServeConfig(max_len=32),
+                            device="cuda").generate(prompts, 8)
+    np.testing.assert_array_equal(on_card, on_cpu)
+    assert fa_ops.counts["tf32x3"] == before[0]["tf32x3"] + 2 * uses
+    assert fa_ref.counts == before[1]

@@ -1,9 +1,14 @@
-"""The port's vlm, audio and moe families against the JAX package's.
+"""The port's vlm, audio, moe, ssm and hybrid families against the JAX
+package's.
 
-Reduced configs of llava-next-mistral-7b (vlm), whisper-large-v3 (audio)
-and qwen3-moe-235b-a22b (moe), with the reference's weights carried
-across by ``params_from_jax`` and inputs from the same seeded numpy
-draws (``make_batch``).  Both packages run in f32 on the CPU, with
+Reduced configs of llava-next-mistral-7b (vlm), whisper-large-v3
+(audio), qwen3-moe-235b-a22b (moe), xlstm-1.3b (ssm: 2 superblocks of one
+mLSTM and one sLSTM block) and zamba2-7b (hybrid, at 5 layers: 2
+superblocks of 2 Mamba2 blocks, each followed by the shared attention
+block, and a tail of 1), with the reference's weights carried across by
+``params_from_jax`` and inputs from the same seeded numpy draws
+(``make_batch``).  24 positions are one whole chunk of 16 and a padded
+one for the SSM mixers.  Both packages run in f32 on the CPU, with
 ``attention_impl="reference"`` and ``"pallas"`` (JAX's flash kernel in
 interpret mode, the port's plain version).  Logits agree within 1e-4
 (the two sum in different orders), greedy tokens are equal, and the moe
@@ -32,15 +37,20 @@ from repro.serving import ServingEngine as JaxServingEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    DenseLM, EncDecLM, attention, decode_step, fill_cache, forward,
-    init_cache, init_params, make_batch, moe, params_from_jax, prefill,
+    XLSTMLM, DenseLM, EncDecLM, ZambaLM, attention, decode_step, fill_cache,
+    forward, init_cache, init_params, make_batch, moe, params_from_jax,
+    prefill,
 )
 from repro_torch.serving import ServeConfig, ServingEngine  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 VLM, AUDIO, MOE = ("llava-next-mistral-7b", "whisper-large-v3",
                    "qwen3-moe-235b-a22b")
-ARCHS = [VLM, AUDIO, MOE]
+XLSTM, ZAMBA = "xlstm-1.3b", "zamba2-7b"
+ARCHS = [VLM, AUDIO, MOE, XLSTM, ZAMBA]
+#: zamba2 at 5 layers: the reduced default's 4 (attn_every 2) leave the
+#: Mamba2 tail empty
+ARCH_OVERRIDES = {ZAMBA: {"n_layers": 5}}
 IMPLS = ["reference", "pallas"]
 #: the cell of each test: 2 rows of 24 positions (vlm: 8 patches + 16
 #: tokens), 8 new tokens
@@ -53,6 +63,7 @@ def close(got: torch.Tensor, want, **tol) -> None:
 
 
 def cfg_pair(arch: str, **overrides):
+    overrides = {**ARCH_OVERRIDES.get(arch, {}), **overrides}
     return (jax_configs.reduced(jax_configs.get_config(arch), **overrides),
             configs.reduced(configs.get_config(arch), **overrides))
 
@@ -144,6 +155,24 @@ def test_moe_serving_engine_equals_jax_engine():
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+@pytest.mark.parametrize("arch", [XLSTM, ZAMBA])
+def test_ssm_and_hybrid_serving_engine_equals_jax_engine(arch):
+    """xlstm and zamba2 take tokens only, so both ``ServingEngine``s
+    serve them: the same greedy tokens (zamba2's prefill attention on the
+    flash function)."""
+    jcfg, params, tcfg, model = models(arch, "pallas")
+    p = np.random.default_rng(9).integers(
+        0, tcfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    want = JaxServingEngine(jcfg, params, JaxServeConfig(
+        max_len=SEQ + NEW)).generate(p, NEW)
+    before = ref.counts["flash_attention"]
+    got = ServingEngine(tcfg, model, ServeConfig(max_len=SEQ + NEW),
+                        device="cpu").generate(p, NEW)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    shared_uses = tcfg.n_layers // tcfg.attn_every if arch == ZAMBA else 0
+    assert ref.counts["flash_attention"] == before + shared_uses
+
+
 @pytest.mark.parametrize("impl", IMPLS)
 def test_vlm_prefill_counts_the_patches(impl):
     """The vlm cache holds the patch prefix: ``pos`` after prefill is
@@ -180,8 +209,37 @@ def test_whisper_prefill_leaves_the_caches_zero_like_the_reference(impl):
     assert got["xk"].shape[2] == tcfg.encoder_seq
 
 
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", [XLSTM, ZAMBA])
+def test_ssm_and_hybrid_prefill_leave_the_states_zero_like_the_reference(
+        arch, impl):
+    """The reference's ``fill_cache`` sets only ``pos`` for ssm and
+    hybrid too, so after ``prefill`` the mLSTM and sLSTM states (xlstm)
+    and the Mamba2 states, conv windows and shared attention's KV cache
+    (zamba2) are zero.  The port reproduces it (a fault of the reference,
+    kept for parity).  Smallest input: a 2-token prompt."""
+    jcfg, params, tcfg, model = models(arch, impl)
+    jb = jax_io.make_batch(jcfg, 1, 2, seed=8)
+    tb = make_batch(tcfg, 1, 2, seed=8, device="cpu")
+    want_logits, want = jax_tf.prefill(jcfg, params, jb, 8)
+    got_logits, got = prefill(tcfg, model, tb, 8)
+    close(got_logits, want_logits)
+    names = (["m", "pos", "s_c", "s_h", "s_n"] if arch == XLSTM else
+             ["conv", "conv_tail", "k", "m", "m_tail", "pos", "v"])
+    assert sorted(got) == sorted(want) == names
+    assert got["pos"] == int(want["pos"]) == 2
+    for name in names:
+        if name != "pos":
+            assert tuple(got[name].shape) == want[name].shape
+            assert got[name].dtype == getattr(torch, want[name].dtype.name)
+            assert not got[name].any() and not np.asarray(want[name]).any()
+    if arch == ZAMBA:
+        assert got["m_tail"].shape[0] == 1
+
+
 def test_port_classes_and_cache_layouts():
-    for arch, cls in ((VLM, DenseLM), (MOE, DenseLM), (AUDIO, EncDecLM)):
+    for arch, cls in ((VLM, DenseLM), (MOE, DenseLM), (AUDIO, EncDecLM),
+                      (XLSTM, XLSTMLM), (ZAMBA, ZambaLM)):
         jcfg, _, tcfg, model = models(arch, "reference")
         assert isinstance(model, cls)
         want = jax_tf.init_cache(jcfg, BATCH, 12)
@@ -190,6 +248,11 @@ def test_port_classes_and_cache_layouts():
         for name in got:
             if name != "pos":
                 assert tuple(got[name].shape) == want[name].shape
+
+
+#: the reference's stacked trees -> their number of stacked leading axes
+STACKED = {"layers": 1, "encoder": 1, "decoder": 1, "sblocks": 1,
+           "mamba_tail": 1, "mblocks": 2, "mamba_sb": 2}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -201,13 +264,12 @@ def test_init_params_shapes_match_the_reference(arch):
     n = 0
     for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
         keys = [k.key for k in path]
-        stacked = keys[0] in ("layers", "encoder", "decoder")
-        for i in range(leaf.shape[0] if stacked else 1):
-            name = ".".join([keys[0], str(i), *keys[1:]] if stacked
-                            else keys)
+        # the reference's stacked axes are the port's module indices
+        depth = STACKED.get(keys[0], 0)
+        for index in np.ndindex(*leaf.shape[:depth]):
+            name = ".".join([keys[0], *map(str, index), *keys[1:]])
             p = mine[name]
-            assert tuple(p.shape) == (leaf.shape[1:] if stacked
-                                      else leaf.shape), name
+            assert tuple(p.shape) == leaf.shape[depth:], name
             assert p.dtype == getattr(torch, leaf.dtype.name), name
             n += 1
     assert n == len(mine)

@@ -241,10 +241,3 @@ def test_make_batch_draws_the_references_tokens(arch):
         np.testing.assert_allclose(got[name].float().numpy(),
                                    np.asarray(arr, np.float32), rtol=0,
                                    atol=0)
-
-
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
-def test_other_families_are_not_ported(arch):
-    cfg = configs.reduced(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(cfg, torch.Generator(), device="cpu")

@@ -194,6 +194,18 @@ def test_launch_serve_on_the_cpu():
     assert "16 tokens" in lines[-1]
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
+def test_launch_serve_takes_the_ssm_and_hybrid_archs(arch, capsys):
+    from repro_torch.launch.serve import main
+
+    engine = main(["--arch", arch, "--device", "cpu", "--reduced",
+                   "--requests", "1", "--batch", "2", "--prompt-len", "20",
+                   "--new-tokens", "3"])
+    assert engine.cfg.name == arch and engine.stats["tokens"] == 6
+    assert f"{arch} on cpu (float32, attention pallas)" in \
+        capsys.readouterr().out
+
+
 def test_launch_serve_flags():
     from repro_torch.launch.serve import build_parser
 
