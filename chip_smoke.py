@@ -11,10 +11,13 @@ Phases, in order; any failure exits non-zero and none is caught:
 1. Environment: torch, CUDA, ``nvcc``, the card's name and power limit,
    and the time to build the kernels from ``src/repro_torch`` (one
    ``nvcc`` per source, started together), with ``ptxas``'s registers,
-   shared memory and spills; the count of ``HGMMA`` (warpgroup
-   tensor-core) instructions in the bf16 flash kernel's SASS and of
-   ``HMMA`` (``mma.sync``) instructions in the split-TF32 one, by
-   ``cuobjdump -sass``, each of which must be above 0.
+   shared memory and spills (a spill in any kernel fails the phase); the
+   tensor-core flash kernel's shared memory a block at each head_dim it is
+   instantiated for; the count of ``HGMMA`` (warpgroup tensor-core)
+   instructions in the bf16 flash kernel's SASS (all of it, and its
+   instantiations at head_dim 112 and 128) and of ``HMMA`` (``mma.sync``)
+   instructions in the split-TF32 one, by ``cuobjdump -sass``, each of
+   which must be above 0.
 2. Kernel parity: both support-join kernels against their plain PyTorch
    versions on edge-case grids, requiring exact equality (the s-step
    kernel also on slots nonzero in 0.4%, 1% and 12.6% of the sessions,
@@ -22,14 +25,16 @@ Phases, in order; any failure exits non-zero and none is caught:
    kernel also on the sparse grid of ``frontier_cases``: 0, 1, 10 and 100%
    of (prefix, session) pairs nonzero, one prefix in every session among
    empty ones, only the last of W > 1 words set, bit 31 only); both
-   flash-attention kernels (the tensor-core route, bf16 at head_dim 64
-   and 128, and the split-TF32 route, f32 and every other bf16 head_dim)
-   against their plain version on the grids of ``tests/test_kernels.py``
-   and more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
-   Lq < Lk = 513, GQA 56/8, MQA) and the split-TF32 kernel's head_dims
-   40, 48, 72, 80, 96 and 112 (zamba2-7b's; 40 and 72 zero-padded) and,
-   past 128, 144, 160, 176, 192, 200, 224, 240 and 256 (200
-   zero-padded), f32 within 2e-5 with TF32 off and bf16 within 2e-2.
+   flash-attention kernels (the tensor-core route, bf16 at every head_dim
+   up to 128, and the split-TF32 route, f32 and bf16 past 128) against
+   their plain version on the grids of ``tests/test_kernels.py`` and
+   more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
+   Lq < Lk = 513, GQA 56/8, MQA), its head_dims 16, 32, 48, 80, 96 and
+   112 (zamba2-7b's) and zero-padded 40, 72 and 100, each ragged with
+   Lq < Lk under GQA and over three tiles under MQA, and the split-TF32
+   kernel in both dtypes at 40, 48, 72, 80, 96 and 112 (f32) and, past
+   128, 144, 160, 176, 192, 200, 224, 240 and 256 (200 zero-padded), f32
+   within 2e-5 with TF32 off and bf16 within 2e-2.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
@@ -66,9 +71,10 @@ Phases, in order; any failure exits non-zero and none is caught:
    split-TF32 kernel in f32 at head_dims 112 and 256; in bf16, the share
    of outputs the tensor-core kernel rounds unlike the plain version, and
    its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``);
-   the split-TF32 kernel in bf16 at zamba2-7b's attention shape (head_dim
-   112, phase 15's route), bound by the bf16 peak and, beside it, by the
-   TF32 products it issues.
+   the tensor-core kernel in bf16 at zamba2-7b's attention shape (head_dim
+   112, phase 15's route); the split-TF32 kernel in bf16 at head_dim 256
+   (its bf16 head_dims are those past 128), bound by the bf16 peak and,
+   beside it, by the TF32 products it issues.
 9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
    with the numpy engine over the SEQB client's index and the stage-2
    requests, for each heuristic (equal waves at every op); the per-op
@@ -104,9 +110,9 @@ Phases, in order; any failure exits non-zero and none is caught:
    peak memory and one profile each of a prefill and a decode step.
 15. zamba2-7b (hybrid) at full width and depth, bf16, served as phase 6
    serves codeqwen (``ServingEngine``, 3 requests of batch 4 x prompt
-   2,048 x 32 greedy tokens): every prefill launches the split-TF32 flash
+   2,048 x 32 greedy tokens): every prefill launches the tensor-core flash
    kernel 13 times (once a use of the shared attention block, head_dim
-   112), never the tensor-core one or the plain version; every position's
+   112), never the split-TF32 one or the plain version; every position's
    bf16 logits of the first prompt meet phase 7's gate; at full width cut
    to 13 layers (2 superblocks and a tail block) in f32 the kernel and
    plain paths' full-sequence logits agree within 1e-3 and their greedy
@@ -776,16 +782,23 @@ FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
 FLASH_TC_EDGES = [(1, 4, 2, 1000, 1000, 128), (1, 4, 2, 300, 100, 128),
                   (1, 2, 2, 200, 513, 128), (1, 56, 8, 300, 300, 128),
                   (2, 8, 1, 300, 300, 64), (513, 128, 8, 129, 129, 64)]
-#: the split-TF32 kernel at head_dims past the first four: 48, 80, 96 and
-#: 112 (zamba2-7b's) by their own instantiations, 40 and 72 zero-padded to
-#: 48 and 80; past 128, in two output chunks a q tile, 144, 160, 176,
-#: 192, 224, 240 and 256 by their own and 200 zero-padded to 208; ragged
-#: 130, Lq < Lk, and GQA 8/2 at 112 and 256
+#: head_dims past the first four, in both dtypes (bf16 up to 128 takes the
+#: tensor-core kernel, the rest the split-TF32 one): 48, 80, 96 and 112
+#: (zamba2-7b's) by their own instantiations, 40 and 72 zero-padded to 48
+#: and 80; past 128, in two output chunks a q tile, 144, 160, 176, 192,
+#: 224, 240 and 256 by their own and 200 zero-padded to 208; ragged 130,
+#: Lq < Lk, and GQA 8/2 at 112 and 256
 FLASH_ANY_D = [(1, 2, 2, 130, 130, d)
                for d in (40, 48, 72, 80, 96, 112, 144, 160, 176, 192, 200,
                          224, 240, 256)] \
     + [(1, 2, 2, 70, 200, 112), (2, 8, 2, 100, 100, 112),
        (1, 2, 2, 70, 200, 256), (2, 8, 2, 100, 100, 256)]
+#: bf16 only, the tensor-core kernel at every head_dim but 64 and 128:
+#: its instantiations at 16, 32, 48, 80, 96 and 112 and zero-padded 40, 72
+#: and 100, each ragged with Lq < Lk under GQA 4/2 and over three q and kv
+#: tiles under MQA 8/1
+FLASH_TC_ANY_D = [shape for d in (16, 32, 40, 48, 72, 80, 96, 100, 112)
+                  for shape in ((1, 4, 2, 70, 200, d), (2, 8, 1, 300, 300, d))]
 #: f32 with TF32 off: both sides are true f32 and differ in summation
 #: order only; bf16: one rounding of the output
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -851,7 +864,7 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
             q, k, v = random_qkv(torch, rng, *shape, dtype)
             for causal in (True, False):
                 parity.check(q, k, v, causal)
-    for shape in FLASH_TC_EDGES:
+    for shape in FLASH_TC_EDGES + FLASH_TC_ANY_D:
         q, k, v = random_qkv(torch, rng, *shape, torch.bfloat16)
         for causal in (True, False):
             parity.check(q, k, v, causal)
@@ -861,9 +874,11 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
             for causal in (True, False):
                 parity.check(q, k, v, causal)
     # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D),
-    # on each route (the tensor-core kernel reads them through TMA maps)
+    # on each route (the tensor-core kernel reads them through TMA maps),
+    # and at zamba2-7b's head_dim
     for (s, hq, hkv, d), dtype in (((70, 4, 2, 32), torch.float32),
-                                   ((300, 8, 2, 128), torch.bfloat16)):
+                                   ((300, 8, 2, 128), torch.bfloat16),
+                                   ((300, 8, 8, 112), torch.bfloat16)):
         x = torch.from_numpy(rng.standard_normal((2, s, hq, d)).astype(
             np.float32)).to(DEVICE, dtype)
         kv = torch.from_numpy(rng.standard_normal((2, s, hkv, d)).astype(
@@ -872,16 +887,39 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
                      kv.transpose(1, 2), True)
 
 
-def sass_count(lib_path: str, opcode: str) -> int:
-    """Instructions of ``opcode`` in a built library's SASS, by the
-    ``cuobjdump`` of the toolkit that built it."""
+def sass_listing(lib_path: str) -> str:
+    """A built library's SASS, by the ``cuobjdump`` of the toolkit that
+    built it."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", lib_path],
+    return subprocess.run([str(cuobjdump), "-sass", lib_path],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
+
+
+def function_sass(sass: str, function: str) -> str:
+    """The part of a SASS listing that belongs to the functions whose
+    (mangled) name holds ``function``."""
+    return "".join(f for f in sass.split("Function : ")[1:]
+                   if function in f.split(None, 1)[0])
+
+
+def sass_count(lib_path: str, opcode: str,
+               function: Optional[str] = None) -> int:
+    """Instructions of ``opcode`` in a built library's SASS: in all of it,
+    or in the functions whose name holds ``function``."""
+    sass = sass_listing(lib_path)
+    if function is not None:
+        sass = function_sass(sass, function)
     return len(re.findall(rf"\b{opcode}\b", sass))
+
+
+def spilled_bytes(build_log: str) -> int:
+    """Bytes of spill stores and loads over every kernel that ``ptxas -v``
+    reports in a build log."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                          build_log))
 
 
 def counts_now(ops, ref) -> dict:
@@ -1157,8 +1195,10 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     prefill shape, on the model's layout ((B, S, H, D) viewed as
     (B, H, S, D)): the tensor-core route in bf16, the split-TF32 route in
     f32 (TF32 off for the plain version and SDPA); the tensor-core kernel
-    also with p in fewer bf16 parts (``ops.P_PARTS``).  Returns each
-    route's timing."""
+    also with p in fewer bf16 parts (``ops.P_PARTS``) and at zamba2-7b's
+    head_dim 112; the split-TF32 kernel also at head_dims 112 and 256 in
+    f32 and 256 in bf16.  Returns each timing by route, or by a key that
+    names the head_dim."""
     from unittest import mock
 
     import torch.nn.functional as F
@@ -1171,9 +1211,10 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # the prefill shape on each route, then in f32 at zamba2-7b's head_dim
     # 112 and at 256, the split-TF32 kernel's widest instantiation (two
     # output chunks a q tile, each recomputing q.k over all 256 columns;
-    # the bound counts the function's work, once), and in bf16 at head_dim
-    # 112, zamba2-7b's serve path (phase 15): bound by the function's work
-    # at the bf16 peak, with the TF32 products it issues beside it
+    # the bound counts the function's work, once); in bf16 at head_dim
+    # 112, zamba2-7b's serve path (phase 15), on the tensor cores; and in
+    # bf16 at 256 on split TF32: bound by the function's work at the bf16
+    # peak, with the TF32 products it issues beside it
     for dtype, peak, products, d, key in (
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, d, None),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, d,
@@ -1183,7 +1224,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 256,
              "tf32x3_d256"),
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, 112,
-             "tf32x3_bf16_d112")):
+             "tensor_core_d112"),
+            (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, 256,
+             "tf32x3_bf16_d256")):
         flop = 4 * b * h * d * (l * (l + 1) // 2)
         which = fa_ops.route(dtype, d)
         rng = np.random.default_rng(1)
@@ -1210,8 +1253,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
                 torch, lambda a=qkv: F.scaled_dot_product_attention(
                     *a, is_causal=True)),
         }
-        if which == "tensor_core":
+        if which == "tensor_core" and key is None:
             # the same kernel with p split into fewer bf16 parts, beside it
+            # (instantiated at head_dim 64 and 128 only)
             out["p_parts_ms"], out["p_parts_rounding_share"] = {}, {}
             want = fa_ref.flash_attention(q, k, v)
             for n in range(fa_ops.P_PARTS, 0, -1):
@@ -1797,7 +1841,7 @@ def family_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
 #: 2 superblocks of 6 Mamba2 blocks, each followed by the shared attention
 #: block, and a tail of 1) and 16 (xlstm: 2 superblocks of 7 mLSTM blocks
 #: and 1 sLSTM block).  zamba2's prefill calls the shared block 13 times
-#: (81 // 6), on the split-TF32 route (bf16 at head_dim 112); xlstm has no
+#: (81 // 6), on the tensor-core route (bf16 at head_dim 112); xlstm has no
 #: attention
 SSM_PHASES = (
     FamilyPhase("hybrid", "zamba2-7b", SERVE_PROMPT, 13, f32_layers=13),
@@ -1806,6 +1850,10 @@ SSM_PHASES = (
 #: the chunked-against-recurrent check's prompt: not a multiple of the
 #: 256-position chunk, so the padding path runs
 RECURRENT_PROMPT = 300
+#: zamba2-7b's bf16 gate ratio with its shared attention on the split-TF32
+#: kernel, before bf16 took the tensor-core route at head_dim 112 (an
+#: H100 80GB HBM3 at 700 W; PERF.md): printed beside the ratio now
+SPLIT_TF32_HYBRID_GATE_RATIO = 1.0524
 
 
 #: a block's chunked output against its decode run token by token from
@@ -1991,8 +2039,8 @@ def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
     """Phases 15-16: one family at full width and depth in bf16, random
     weights from seed 0 made on the card, ``attention_impl="pallas"``,
     served through ``ServingEngine`` as phase 6 serves codeqwen.  Every
-    prefill launches the split-TF32 flash kernel ``spec.launches`` times,
-    never the tensor-core one or the plain version; zamba2's bf16 logits
+    prefill launches the tensor-core flash kernel ``spec.launches`` times,
+    never the split-TF32 one or the plain version; zamba2's bf16 logits
     meet phase 7's gate and its f32 cut the kernel-against-plain check
     (:func:`f32_family_check`); both families hold the
     chunked-against-recurrent check (:func:`recurrent_check`)."""
@@ -2026,8 +2074,8 @@ def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
                 .astype(np.int32) for _ in range(SERVE_REQUESTS)]
     engine = ServingEngine(cfg, model, ServeConfig(max_len=max_len),
                            device=DEVICE)
-    want = {"flash_attention": spec.launches, "tensor_core": 0,
-            "tf32x3": spec.launches}
+    want = {"flash_attention": spec.launches, "tensor_core": spec.launches,
+            "tf32x3": 0}
     reset_counts(*count_tables)
     outs, per_request = [], []
     for prompts in requests:
@@ -2039,7 +2087,7 @@ def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
         launched = {r: fa_ops.counts[r] - before[r] for r in before}
         if launched != want:
             raise AssertionError(f"{spec.name}: a prefill did not launch the "
-                                 f"split-TF32 flash kernel, and only it, "
+                                 f"tensor-core flash kernel, and only it, "
                                  f"{spec.launches} times: {launched}")
     counted = {"kernel": dict(fa_ops.counts), "plain": dict(fa_ref.counts)}
     peak = torch.cuda.max_memory_allocated()
@@ -2062,13 +2110,16 @@ def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
 
     batch = {"tokens": torch.as_tensor(requests[0], dtype=torch.int64,
                                        device=DEVICE)}
-    out = {"launches": counted["kernel"]["tf32x3"], "params": n_params,
+    out = {"launches": counted["kernel"]["tensor_core"], "params": n_params,
            "prefill_s": [p for p, _ in per_request],
            "tok_s": [SERVE_BATCH * SERVE_NEW / d for _, d in per_request],
            "peak_bytes": peak}
     if cfg.family == "hybrid":
         out["gate"] = bf16_logits_gate(torch, fa_ref, cfg, model, batch,
                                        max_len, spec.name, full=True)
+        print(f"{spec.name}: gate ratio {out['gate']['mean_ratio']:.4f}x on "
+              f"the tensor-core kernel; {SPLIT_TF32_HYBRID_GATE_RATIO}x on "
+              f"the split-TF32 kernel before (PERF.md)")
     else:
         slstm_s, pre_s = slstm_seconds(torch, cfg, model, batch, max_len)
         out["slstm_share"] = slstm_s / pre_s
@@ -2076,8 +2127,11 @@ def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
               f"s of a {pre_s:.4f} s prefill ({out['slstm_share']:.4f}; "
               f"each block timed between synchronizes) [{card}]")
     print(f"profile of one {spec.name} prefill (warm):")
-    _, out["prefill_busy_share"] = profiled(
+    prof, out["prefill_busy_share"] = profiled(
         torch, lambda: prefill(cfg, model, batch, max_len))
+    out["prefill_flash_ms"], n = kernel_total(prof, "flash_attention")
+    print(f"  flash kernels in the prefill: {out['prefill_flash_ms']:.3f} ms "
+          f"over {n} launches [{card}]")
     cache = prefill(cfg, model, batch, max_len)[1]
     tok = torch.as_tensor(outs[0][:, :1], dtype=torch.int64, device=DEVICE)
     print(f"profile of one {spec.name} decode step (warm, at position "
@@ -2153,9 +2207,11 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "warning", "Performance")):
                 print("  ptxas:", line.strip())
+        if spilled_bytes(log or ""):
+            raise AssertionError(f"{name}: ptxas spilled registers")
     print(f"kernel build + load, {len(libs)} libraries: {build_s:.2f} s")
     tc = libs["tensor_core"]
-    for d in (64, 128):
+    for d in fa_ops.TENSOR_CORE_HEAD_DIMS:
         print(f"tensor-core flash kernel at head_dim {d}: "
               f"{tc.flash_attention_wgmma_smem_bytes(d)} B of dynamic "
               f"shared memory a block")
@@ -2169,6 +2225,16 @@ def main(argv=None) -> int:
         if tc_instructions[which] == 0:
             raise AssertionError(f"the {which} flash kernel has no {opcode} "
                                  f"instruction")
+    # the instantiations (head_dim, bf16 parts of p) on the serve paths:
+    # zamba2-7b's head_dim 112 and the dense configs' 128, both 3 parts
+    hgmma = {d: sass_count(tc._name, "HGMMA",
+                           f"flash_attention_wgmma_kernelILi{d}ELi3E")
+             for d in (112, 128)}
+    print("flash_attention SASS by instantiation: " + ", ".join(
+        f"head_dim {d}: {n} HGMMA" for d, n in hgmma.items()))
+    if not all(hgmma.values()):
+        raise AssertionError(f"an instantiation of the tensor-core flash "
+                             f"kernel has no HGMMA instruction: {hgmma}")
 
     # -- phase 2: kernel parity on edge grids ---------------------------
     parity = Parity(torch, ops, ref)
@@ -2524,20 +2590,21 @@ def main(argv=None) -> int:
         cluster_warm_mine_busy_share=cluster["busy_share"],
         prefetcher_walls_s=prefetch["wall_s"],
         prefetcher_mine_busy_share=prefetch["busy_share"])
-    # the tensor-core kernel is codeqwen's serve path's; the split-TF32 one
-    # zamba2's (phase 15), timed at its shape (bf16, head_dim 112)
+    # the tensor-core kernel is the serve paths' (codeqwen's counted here,
+    # the families' and zamba2's beside it); the split-TF32 one the f32
+    # checks' (phase 7's counted here, the families' beside it), each
+    # timed at its path's shape
     hybrid = ssm_families["hybrid"]
-    flash_paths = {"tensor_core": ("serve", serve_counts["kernel"],
-                                   "tensor_core"),
-                   "tf32x3": ("zamba2_serve", {"tf32x3": hybrid["launches"]},
-                              "tf32x3_bf16_d112")}
+    flash_paths = {"tensor_core": ("serve", serve_counts["kernel"]
+                                   ["tensor_core"]),
+                   "tf32x3": ("f32_check", f32_launches)}
     for which, (name, source) in FLASH_KERNELS.items():
-        path, counted, timed = flash_paths[which]
-        t = flash[timed]
+        path, launched = flash_paths[which]
+        t = flash[which]
         kernels.append({
             "name": name, "route": "cuda", "ops_route": which,
             "source": source, "replaces": FLASH_TPU_KERNEL,
-            "launches": counted[which], "path": path,
+            "launches": launched, "path": path,
             "parity_cases": fparity.cases[which],
             "max_abs_err": fparity.max_abs_err(which),
             "max_abs_err_f32": fparity.max_err[which, "float32"],
@@ -2553,38 +2620,44 @@ def main(argv=None) -> int:
                                        "p_parts_ms", "p_parts_rounding_share")
                if key in t},
         })
-    # each family's path launches the tensor-core kernel; its f32 check
-    # the split-TF32 one
+    # each family's path (zamba2's too) launches the tensor-core kernel;
+    # its f32 check the split-TF32 one
+    serving = {**families, "hybrid": hybrid}
     kernels[-2].update(family_launches={
-        name: fam["launches"] for name, fam in families.items()}, **{
-        f"{name}_{key}": fam[key] for name, fam in families.items()
+        name: fam["launches"] for name, fam in serving.items()}, **{
+        f"{name}_{key}": fam[key] for name, fam in serving.items()
         for key in ("prefill_s", "tok_s", "peak_bytes")}, **{
         f"{name}_gate_mean_ratio": fam["gate"]["mean_ratio"]
-        for name, fam in families.items()})
-    f32_families = {**families, "hybrid": hybrid}
+        for name, fam in serving.items()},
+        hybrid_prefill_busy_share=hybrid["prefill_busy_share"],
+        hybrid_prefill_flash_ms=hybrid["prefill_flash_ms"],
+        hybrid_decode_busy_share=hybrid["decode_busy_share"],
+        d112_tensor_core_instructions=hgmma[112])
     kernels[-1].update(
-        f32_check_launches=f32_launches,
         f32_family_launches={name: fam["f32"]["launches"]
-                             for name, fam in f32_families.items()},
+                             for name, fam in serving.items()},
         f32_family_logits_max_abs_diff={
             name: fam["f32"]["logits_max_abs_diff"]
-            for name, fam in f32_families.items()},
+            for name, fam in serving.items()},
         recurrent_logits_max_abs_diff={
             name: fam["recurrent"]["logits_max_abs_diff"]
             for name, fam in ssm_families.items()},
-        hybrid_gate_mean_ratio=hybrid["gate"]["mean_ratio"],
-        **{f"{name}_{key}": fam[key] for name, fam in ssm_families.items()
-           for key in ("prefill_s", "tok_s", "peak_bytes",
-                       "prefill_busy_share", "decode_busy_share")},
+        **{f"ssm_{key}": ssm_families["ssm"][key] for key in (
+            "prefill_s", "tok_s", "peak_bytes", "prefill_busy_share",
+            "decode_busy_share")},
         ssm_slstm_share=ssm_families["ssm"]["slstm_share"])
-    # the same kernel at the prefill shape in f32 (D 128), at D 112 and at
-    # D 256
-    for key, prefix in (("tf32x3", "f32_d128"), ("tf32x3_d112", "d112"),
-                        ("tf32x3_d256", "d256")):
+    # each kernel at its other timed shapes: the tensor-core one at
+    # zamba2-7b's head_dim 112; the split-TF32 one in f32 at head_dims 112
+    # and 256 and in bf16 at 256
+    for i, key, prefix in ((-2, "tensor_core_d112", "d112"),
+                           (-1, "tf32x3_d112", "d112"),
+                           (-1, "tf32x3_d256", "d256"),
+                           (-1, "tf32x3_bf16_d256", "bf16_d256")):
         t = flash[key]
-        kernels[-1].update({f"{prefix}_{k}": t[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
-            "shape") if k in t})
+        kernels[i].update({f"{prefix}_{k}": t[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share", "tflop_s", "rounding_share", "issued_bound_ms",
+            "shape") if t.get(k) is not None})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
-// Forward flash attention on Hopper's tensor cores (sm_90a), bf16 at
-// head_dim 64 and 128, bound to Python through ctypes.
+// Forward flash attention on Hopper's tensor cores (sm_90a), bf16 at every
+// head_dim that is a multiple of 16 up to 128, bound to Python through
+// ctypes.  The wrapper (ops.py) runs any other head_dim up to 128 on
+// copies zero-padded to the next multiple of 16.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
-// src/repro/kernels/flash_attention/flash_attention.py for bf16 inputs,
-// and computes what that kernel computes (and what
-// flash_attention_tf32x3.cu, which keeps float32 and the other head dims,
+// src/repro/kernels/flash_attention/flash_attention.py for bf16 inputs up
+// to head_dim 128, and computes what that kernel computes (and what
+// flash_attention_tf32x3.cu, which keeps float32 and bf16 past 128,
 // computes):
 //
 //   out[b,h,r] = sum_c p[r,c] v[b,h/group,c] / sum_c p[r,c]
@@ -29,7 +31,9 @@
 // Bound: at the serving prefill (B 4, H 32, L 2,048, D 128, causal) the
 // work is 1.375e11 FLOP of bf16 products against 268 MB of q, k, v and
 // out, about 500 FLOP a byte, above the H100's ridge of about 295: the
-// tensor cores' 989 TFLOP/s bound it (0.139 ms), not memory.
+// tensor cores' 989 TFLOP/s bound it (0.139 ms), not memory.  At
+// zamba2-7b's shared attention (the same shape at D 112) it is 1.2032e11
+// FLOP against 235 MB, 0.1217 ms.
 //
 // Design: the shape of a Hopper GEMM with the online softmax between its
 // two products.
@@ -48,26 +52,34 @@
 //    with mbarriers for full and empty slots, tile j + 1 as tile j is
 //    used.  (A producer warp would make a block of 288 threads, for which
 //    ptxas holds a thread to 168 registers, too few for three parts of P:
-//    it spilled.)  Rows past Lq or Lk arrive as
-//    zeros.  A 128-column tile is stored as D/64 regions of 128 rows x 128
-//    bytes.  At D = 128 that is 32 KB of q and 2 x 64 KB of K and V, so one
-//    block runs on an SM.
-//  * S = Q K^T is D/16 wgmma.m64n128k16 per warpgroup, both operands read
-//    from shared memory, f32 out.  Masks are applied only on tiles that
-//    cross the diagonal or the ragged end; tiles wholly in the future are
-//    never loaded.  The softmax runs in registers: each thread holds 2 rows
-//    x 32 columns, reduces a row with two quad shuffles, and takes
-//    exp2(s * sm_scale * log2(e) - m) as one FMA and one ex2.approx.
+//    it spilled.)  Rows past Lq or Lk arrive as zeros.  A tile is stored
+//    as ceil(D / 64) regions of 128 rows x 64 columns (128 bytes), one TMA
+//    box each: at a D that is not a multiple of 64 the last region's
+//    columns past D arrive as zeros too, and TMA counts them toward the
+//    mbarrier's bytes, so a tile always expects whole regions.  No padded
+//    copy is made in memory.  At D = 128 (and 80-112) that is 32 KB of q
+//    and 2 x 64 KB of K and V, so one block runs on an SM; at D <= 64
+//    half of it.
+//  * S = Q K^T is D/16 wgmma.m64n128k16 per warpgroup (7 at D 112), both
+//    operands read from shared memory, f32 out: the k-steps stop at D, so
+//    the zero columns are never multiplied.  Masks are applied only on
+//    tiles that cross the diagonal or the ragged end; tiles wholly in the
+//    future are never loaded.  The softmax runs in registers: each thread
+//    holds 2 rows x 32 columns, reduces a row with two quad shuffles, and
+//    takes exp2(s * sm_scale * log2(e) - m) as one FMA and one ex2.approx.
 //  * O = alpha O + P V: P is split into bf16 parts in registers, where
 //    the accumulator layout of the first product is the A-operand layout
-//    of the second, and each part is fed to wgmma.m64n64k16 with V read
+//    of the second, and each part is fed to wgmma.m64nNk16 with V read
 //    from shared memory as an MN-major (transposed) B operand, one
-//    instruction per part and 64 columns of D.  A tile's products are
-//    summed from zero into a 64-column accumulator, which joins O in f32
-//    registers by one FMA an element (a sum chained through every tile's
-//    products drifts further from the f32 attention).
+//    instruction per part and region of D: N = 64, and in the last region
+//    N = D - 64 (regions - 1), its live columns (48 at D 112; Hopper
+//    takes N in multiples of 8), so no product is spent on the zero
+//    columns and the accumulator holds only live ones.  A tile's products
+//    are summed from zero into a region's accumulator, which joins O in
+//    f32 registers by one FMA an element (a sum chained through every
+//    tile's products drifts further from the f32 attention).
 //  * Epilogue: O / l in f32, rounded to bf16, stored through the (B, S, H,
-//    D) strides of the output.
+//    D) strides of the output, columns below D only.
 // Tried on the H100 and measured no faster (PERF.md, Findings): issuing
 // S_{j+1} with P_j V_j and running softmax j+1 meanwhile; the two
 // warpgroups taking turns on the tensor cores; a producer warpgroup with
@@ -97,8 +109,22 @@ struct Strides {
   long long b, h, s;                 // in elements; head_dim stride is 1
 };
 
+// regions of 64 columns a tile holds at head_dim D
 template <int D>
-__host__ __device__ constexpr int tile_bytes() { return kBlock * D * 2; }
+__host__ __device__ constexpr int regions() { return (D + 63) / 64; }
+
+// a tile's shared memory, whole regions: what TMA delivers, zeros past D
+// included, and what an mbarrier of the tile expects
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return regions<D>() * kRegionBytes;
+}
+
+// live columns of region r at head_dim D: 64, or what the last one holds
+template <int D>
+__host__ __device__ constexpr int region_columns(int r) {
+  return r + 1 < regions<D>() ? 64 : D - 64 * (regions<D>() - 1);
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -208,25 +234,64 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[32] (+)= A (64 x 16 bf16 in registers) . B (16 x 64, MN-major in
-// shared memory); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+// d[0 .. N/2) (+)= A (64 x 16 bf16 in registers) . B (16 x N, MN-major in
+// shared memory), N 16, 32, 48 or 64; scale_d = 0 overwrites d.  The
+// accumulator layout of m64nN is that of m64n64 cut to its first N
+// columns, so d[N/2 ..] are not touched
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "wgmma width");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, "
+        "%28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+        "1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
 }
 
 // 2^x by the SFU alone (ex2.approx.ftz): exp2f adds a range fix-up of
@@ -236,11 +301,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // (x, y) as kParts pairs of bf16, largest first: each part rounds to bf16
@@ -259,6 +319,37 @@ __device__ __forceinline__ void split_bf16(float x, float y,
   }
 }
 
+// O = alpha O + P V over one region of N columns of D, the V tile's
+// region at shared address v_region: the tensor cores sum this tile's
+// products, smallest part first, from zero into t, and t joins O in f32
+// (a sum chained through every tile's products drifts more).  o[0 .. N/2)
+// are the region's live accumulator elements
+template <int N, int kParts>
+__device__ __forceinline__ void pv_region(float (&o)[32],
+                                          const uint32_t (&pp)[8][4][kParts],
+                                          const float (&alpha)[2],
+                                          uint32_t v_region) {
+  float t[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = 0.f;   // overwritten (scale_d = 0)
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t dv = smem_desc(v_region + kk * 16 * 128, 1024, 1024);
+#pragma unroll
+    for (int part = kParts - 1; part >= 0; --part) {
+      const uint32_t a[4] = {pp[kk][0][part], pp[kk][1][part],
+                             pp[kk][2][part], pp[kk][3][part]};
+      wgmma_m64nNk16_rs<N>(t, a, dv, kk > 0 || part < kParts - 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    o[i] = fmaf(o[i], alpha[(i / 2) % 2], t[i]);
+}
+
 // Accumulator layout of wgmma.m64nN (f32), for thread `lane` of warp w of
 // the warpgroup: element j sits at row 16 w + lane / 4 + 8 ((j / 2) % 2)
 // and column 8 (j / 4) + 2 (lane % 4) + j % 2.
@@ -270,7 +361,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              __nv_bfloat16* __restrict__ out, Strides os,
                              int Hq, int group, int Lq, int Lk, int causal,
                              float scale_log2) {
-  constexpr int kRegions = D / 64;
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head_dim");
+  constexpr int kRegions = regions<D>();
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -419,38 +511,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         split_bf16<kParts>(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1],
                            pp[kk][e]);
 
-    // O = alpha O + P V, 64 columns at a time: the tensor cores sum this
-    // tile's products, smallest part first, from zero into t, and t joins
-    // O in f32 (a sum chained through every tile's products drifts more)
+    // O = alpha O + P V, a region of D at a time: 64 columns, and the last
+    // region's live ones only
     mbar_wait(bar_v + 8 * s, parity);
-#pragma unroll
-    for (int r = 0; r < kRegions; ++r) {
-      float t[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) t[i] = 0.f;   // overwritten (scale_d = 0)
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = smem_desc(
-            s_v + s * kTile + r * kRegionBytes + kk * 16 * 128, 1024, 1024);
-#pragma unroll
-        for (int part = kParts - 1; part >= 0; --part) {
-          const uint32_t a[4] = {pp[kk][0][part], pp[kk][1][part],
-                                 pp[kk][2][part], pp[kk][3][part]};
-          wgmma_m64n64k16_rs(t, a, dv, kk > 0 || part < kParts - 1);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        o[r][i] = fmaf(o[r][i], alpha[(i / 2) % 2], t[i]);
-    }
+    const uint32_t v_tile = s_v + s * kTile;
+    pv_region<region_columns<D>(0), kParts>(o[0], pp, alpha, v_tile);
+    if constexpr (kRegions > 1)
+      pv_region<region_columns<D>(1), kParts>(o[1], pp, alpha,
+                                               v_tile + kRegionBytes);
     __syncwarp();
     if (lane == 0) mbar_arrive(bar_free + 8 * s);
   }
 
-  // epilogue: O / l, rounded to bf16
+  // epilogue: O / l, rounded to bf16, columns below D
   __nv_bfloat16* ob = out + b * os.b + h * os.h;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -465,6 +538,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int reg = 0; reg < kRegions; ++reg)
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
+        if (8 * nb >= region_columns<D>(reg)) continue;
         const int i = 4 * nb + 2 * rr;
         *reinterpret_cast<__nv_bfloat162*>(orow + 64 * reg + 8 * nb + col0) =
             __floats2bfloat162_rn(o[reg][i] / denom, o[reg][i + 1] / denom);
@@ -500,7 +574,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A rank-4 map over (D, L, H, B) of a bf16 tensor with the given
-// (batch, head, position) strides in elements, in boxes of 64 x 128 rows.
+// (batch, head, position) strides in elements, in boxes of 64 x 128 rows;
+// a box reaching past D or L is filled with zeros there.
 CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
                   int D, int L, int H, int B, Strides st) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H,
@@ -554,8 +629,9 @@ extern "C" {
 // the CUresult when a tensor map cannot be built.  q, k, v and out
 // are bfloat16 with a contiguous head_dim, 16-byte-aligned bases and
 // (batch, head, position) strides in elements that are multiples of 8;
-// D is 64 or 128; p_parts, the bf16 parts P is split into for the
-// tensor cores, 1, 2 or 3; sm_scale > 0; B * Hq, Lq and Lk positive, and
+// D is a multiple of 16 from 16 to 128; p_parts, the bf16 parts P is split
+// into for the tensor cores, 3, or at D 64 and 128 also 1 or 2 (for
+// tools/flash_rounding.py); sm_scale > 0; B * Hq, Lq and Lk positive, and
 // B * Hq * ceil(Lq / 128) at most 2^31 - 1.  The kernel runs
 // asynchronously on `stream` of card `device`.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
@@ -583,18 +659,23 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
     case 128 * 4 + 1: FA_LAUNCH(128, 1);
     case 128 * 4 + 2: FA_LAUNCH(128, 2);
     case 128 * 4 + 3: FA_LAUNCH(128, 3);
+    case 16 * 4 + 3: FA_LAUNCH(16, 3);
+    case 32 * 4 + 3: FA_LAUNCH(32, 3);
+    case 48 * 4 + 3: FA_LAUNCH(48, 3);
+    case 80 * 4 + 3: FA_LAUNCH(80, 3);
+    case 96 * 4 + 3: FA_LAUNCH(96, 3);
+    case 112 * 4 + 3: FA_LAUNCH(112, 3);
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef FA_LAUNCH
 }
 
-// Dynamic shared memory of a block at head_dim D (64 or 128), in bytes;
-// 0 for another D.
+// Dynamic shared memory of a block at head_dim D (a multiple of 16 from 16
+// to 128), in bytes; 0 for another D.
 int flash_attention_wgmma_smem_bytes(int D) {
-  if (D == 64) return (int)smem_bytes<64>();
-  if (D == 128) return (int)smem_bytes<128>();
-  return 0;
+  if (D % 16 != 0 || D < 16 || D > 128) return 0;
+  return (int)(D <= 64 ? smem_bytes<64>() : smem_bytes<128>());
 }
 
 }  // extern "C"

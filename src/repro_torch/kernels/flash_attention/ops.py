@@ -10,23 +10,31 @@ The port's counterpart of ``src/repro/kernels/flash_attention/ops.py``.
 Two kernels compute the same function, and :func:`route` names which one
 a call takes from its dtype and head_dim alone:
 
-* ``"tensor_core"``: bfloat16 at head_dim 64 or 128 (every dense and GQA
-  config of the repo), ``csrc/flash_attention_wgmma.cu``: ``wgmma`` on
-  the tensor cores, TMA loads.  It reads its inputs through TMA tensor
-  maps, so each base must be 16-byte aligned and each stride a positive
-  multiple of 16 bytes; the wrapper raises ``ValueError`` otherwise.
-* ``"tf32x3"``: float32 at every head_dim, and bfloat16 at every head_dim
-  but 64 and 128, ``csrc/flash_attention_tf32x3.cu``: ``mma.sync`` on the
-  tensor cores in split TF32, each f32 operand split into a TF32 high and
-  low part and each product the sum of three TF32 products, which keeps
-  f32 accuracy (a bfloat16 operand is exact in TF32 and is not split).  It
-  takes any base and strides, copying 16 bytes at a time where they allow.
-  It is instantiated at the head_dims of :data:`HEAD_DIMS`; a head_dim
-  between them runs on a zero-padded copy of q, k and v (zero columns add
-  nothing to q.k and give zero output columns), and one past
-  :data:`MAX_HEAD_DIM` raises ``ValueError`` on a card.  Past head_dim
+* ``"tensor_core"``: bfloat16 at every head_dim up to 128 (every config
+  of the repo: 64 and 128 for the dense, GQA, vlm, audio and moe ones,
+  112 for zamba2-7b's shared attention), ``csrc/flash_attention_wgmma.cu``:
+  ``wgmma`` on the tensor cores, TMA loads, instantiated at the head_dims
+  of :data:`TENSOR_CORE_HEAD_DIMS`.  It reads its inputs through TMA
+  tensor maps, so each base must be 16-byte aligned and each stride a
+  positive multiple of 16 bytes.  At head_dim 64 and 128 the wrapper
+  raises ``ValueError`` for anything else, on any device, as it has since
+  the route took only those two; at the others such an input goes in as
+  an aligned copy on a card (the CPU runs the plain version on it).
+* ``"tf32x3"``: float32 at every head_dim, and bfloat16 past 128,
+  ``csrc/flash_attention_tf32x3.cu``: ``mma.sync`` on the tensor cores in
+  split TF32, each f32 operand split into a TF32 high and low part and
+  each product the sum of three TF32 products, which keeps f32 accuracy
+  (a bfloat16 operand is exact in TF32 and is not split).  It takes any
+  base and strides, copying 16 bytes at a time where they allow.  It is
+  instantiated at the head_dims of :data:`HEAD_DIMS`, one past
+  :data:`MAX_HEAD_DIM` raises ``ValueError`` on a card, and past head_dim
   128 a block writes one of two equal chunks of the output's head_dim
   (:func:`out_chunks`), after computing q.k over the whole of it.
+
+On either route a head_dim that is not a multiple of 16 runs on copies of
+q, k and v zero-padded to the next one (:func:`kernel_head_dim`): zero
+columns add nothing to q.k and give zero output columns, which the
+wrapper cuts off; the scale stays the true head_dim's.
 
 Each kernel takes its tensors' (batch, head, position) strides and needs
 only the head_dim to be contiguous, so a transposed view of the model's
@@ -53,7 +61,8 @@ from .._launch import launch_args, on_cpu
 from . import ref
 
 __all__ = ["flash_attention", "counts", "load", "route", "kernel_head_dim",
-           "out_chunks", "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES"]
+           "out_chunks", "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES",
+           "TENSOR_CORE_HEAD_DIMS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -81,7 +90,12 @@ ROUTES = tuple(_LIBRARIES)
 HEAD_DIMS = tuple(range(16, 257, 16))
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 _OUT_COLUMNS = 128        # most output columns a split-TF32 block holds
-_TENSOR_CORE_DIMS = (64, 128)
+#: head_dims the tensor-core kernel is instantiated for, in bfloat16: its
+#: QK^T reads 16 head_dim columns at a time, its P.V writes 64 or fewer
+TENSOR_CORE_HEAD_DIMS = tuple(range(16, 129, 16))
+#: head_dims at which the tensor-core route refuses a view TMA cannot
+#: read in place (the two it took before it took every one up to 128)
+_TMA_REFUSED_DIMS = (64, 128)
 #: bf16 parts the tensor-core kernel splits f32 p into for P.V (1 to 3):
 #: three carry all of f32's 24 bits, so its output rounds like the plain
 #: version's f32 attention; fewer are faster and drift further
@@ -97,9 +111,9 @@ counts = {"flash_attention": 0, "tensor_core": 0, "tf32x3": 0}
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a call with these inputs launches on a card:
-    ``"tensor_core"`` for bfloat16 at head_dim 64 or 128, else
+    ``"tensor_core"`` for bfloat16 at head_dim 1 to 128, else
     ``"tf32x3"``."""
-    if dtype == torch.bfloat16 and head_dim in _TENSOR_CORE_DIMS:
+    if dtype == torch.bfloat16 and 1 <= head_dim <= TENSOR_CORE_HEAD_DIMS[-1]:
         return "tensor_core"
     return "tf32x3"
 
@@ -132,19 +146,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[1] == 0 or hq % k.shape[1]:
         raise ValueError(f"q heads {hq} are not a multiple of kv heads "
                          f"{k.shape[1]}")
-    if route(q.dtype, d) == "tensor_core":
+    if route(q.dtype, d) == "tensor_core" and d in _TMA_REFUSED_DIMS:
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % _TMA_ALIGN:
-                raise ValueError(f"{name}'s data is not {_TMA_ALIGN}-byte "
-                                 f"aligned, as the tensor-core kernel's TMA "
-                                 f"loads need")
-            step = _TMA_ALIGN // t.element_size()
-            if any(t.stride(i) <= 0 or t.stride(i) % step
-                   for i in range(3) if t.shape[i] > 1):
-                raise ValueError(f"{name}'s strides {t.stride()} are not "
-                                 f"positive multiples of {_TMA_ALIGN} bytes, "
-                                 f"as the tensor-core kernel's TMA loads "
-                                 f"need")
+            fault = _tma_fault(name, t)
+            if fault:
+                raise ValueError(fault)
+
+
+def _tma_fault(name: str, t: torch.Tensor) -> Optional[str]:
+    """Why the tensor-core kernel's TMA loads cannot read ``t`` in place,
+    or ``None`` where they can."""
+    if t.data_ptr() % _TMA_ALIGN:
+        return (f"{name}'s data is not {_TMA_ALIGN}-byte aligned, as the "
+                f"tensor-core kernel's TMA loads need")
+    step = _TMA_ALIGN // t.element_size()
+    if any(t.stride(i) <= 0 or t.stride(i) % step
+           for i in range(3) if t.shape[i] > 1):
+        return (f"{name}'s strides {t.stride()} are not positive multiples "
+                f"of {_TMA_ALIGN} bytes, as the tensor-core kernel's TMA "
+                f"loads need")
+    return None
 
 
 def kernel_head_dim(d: int) -> int:
@@ -208,10 +229,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     _check_grid(which, b, hq, lq, dk)
     res = out
-    if dk != d:                 # the split-TF32 route only
+    if dk != d:                 # either route: zero-padded copies
         q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
         res = torch.empty((b, lq, hq, dk), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
+    if which == "tensor_core":
+        # what TMA cannot read in place (at a head_dim _check lets through)
+        # goes in as a contiguous, aligned copy
+        q, k, v = (t if _tma_fault("", t) is None
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     dev, stream = launch_args(q)
     if which == "tensor_core" and sm_scale <= 0:
         # the kernel folds a positive scale into its exp2; the same scores

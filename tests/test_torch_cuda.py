@@ -150,7 +150,7 @@ def test_mining_on_the_card_uses_the_kernels_and_equals_cpu(card, budget):
 #: tests/test_kernels.py's (b, hq, hkv, lq, lk, d) flash grid, then
 #: decode-aligned Lq < Lk, Lq > Lk (fully masked rows), GQA group 7
 #: (yi-34b's 56/8) and head_dim 16; then the edges of the tensor-core
-#: kernel's 128-row tiles (bf16 at D 64 and 128 takes that route):
+#: kernel's 128-row tiles (bf16 up to D 128 takes that route):
 #: ragged 1,000, Lq > Lk over a whole masked q tile, Lq < Lk = 4 x 128 + 1,
 #: GQA 56/8 at D 128 over several tiles, MQA at D 64
 FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
@@ -217,10 +217,11 @@ def test_flash_kernel_reads_strided_views(card, no_tf32, dtype, s, d):
 def test_tf32x3_kernel_takes_unaligned_views(card, no_tf32, case):
     """The split-TF32 kernel copies 4 bytes at a time where a base or a
     stride rules out 16: an offset view, rows 65 floats apart, a bf16
-    view one element in."""
+    view one element in (at head_dim 144: bf16 up to 128 takes the
+    tensor-core route)."""
     rng = np.random.default_rng(13)
     dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
-    d = 32 if dtype == torch.bfloat16 else 64
+    d = 144 if dtype == torch.bfloat16 else 64
     shape = (1, 4, 100, d)
     data = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     if case == "position_stride_odd":
@@ -353,32 +354,70 @@ def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
     assert fa_ref.counts == before[1]
 
 
-#: head_dims of the split-TF32 kernel beyond 16/32/64/128: its
-#: instantiations at 48, 80, 96, 112 (zamba2-7b's) and, past 128, at 144,
-#: 176, 224, 240 and 256 (two output chunks a q tile), and head_dims it
-#: reaches by zero padding (1, 40, 57, 72, 100, 113, 127, 200)
+#: head_dims beyond 16/32/64/128: the kernels' instantiations at 48, 80,
+#: 96, 112 (zamba2-7b's) and, past 128 (split TF32 only), at 144, 176,
+#: 224, 240 and 256 (two output chunks a q tile), and head_dims they reach
+#: by zero padding (1, 40, 57, 72, 100, 113, 127, 200)
 ANY_D = [1, 40, 48, 57, 72, 80, 96, 100, 112, 113, 127, 144, 176, 200,
          224, 240, 256]
 
 
-@pytest.mark.parametrize("d", ANY_D)
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_tf32x3_kernel_takes_any_head_dim(card, no_tf32, d, causal, dtype):
+def any_head_dim_case(d: int, causal: bool, dtype, which: str) -> None:
+    """(2, 4, 90, d) q over (2, 2, 130, d) k and v: launches route
+    ``which``'s kernel once and agrees with the plain version."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to("cuda", dtype) for s in ((2, 4, 90, d), (2, 2, 130, d),
                                             (2, 2, 130, d)))
-    assert fa_ops.route(dtype, d) == "tf32x3"
-    before = fa_ops.counts["tf32x3"]
+    assert fa_ops.route(dtype, d) == which
+    before = fa_ops.counts[which]
     got = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa_ops.counts["tf32x3"] == before + 1
+    assert fa_ops.counts[which] == before + 1
     want = fa_ref.flash_attention(q, k, v, causal=causal)
     assert got.shape == want.shape and got.dtype == dtype
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, d) for d in ANY_D]
+                         + [(torch.bfloat16, d) for d in ANY_D if d > 128],
+                         ids=lambda x: {torch.float32: "f32",
+                                        torch.bfloat16: "bf16"}.get(x, x))
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_kernel_takes_any_head_dim(card, no_tf32, d, causal, dtype):
+    """f32 at every head_dim, bf16 past 128: the split-TF32 kernel."""
+    any_head_dim_case(d, causal, dtype, "tf32x3")
+
+
+@pytest.mark.parametrize("d", [d for d in ANY_D if d <= 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_kernel_takes_any_head_dim(card, d, causal):
+    """bf16 up to head_dim 128: the tensor-core kernel, at its own
+    instantiation (48, 80, 96, 112) or on zero-padded copies."""
+    any_head_dim_case(d, causal, torch.bfloat16, "tensor_core")
+
+
+def test_tensor_core_kernel_reads_a_misaligned_view_through_a_copy(card):
+    """bf16 at head_dim 112 one element into its buffer: TMA cannot read
+    it in place, so the wrapper hands the tensor-core kernel an aligned
+    copy (at 64 and 128 it refuses such a view)."""
+    rng = np.random.default_rng(21)
+    q = torch.zeros(1 + 2 * 4 * 200 * 112, dtype=torch.bfloat16,
+                    device="cuda")[1:].view(2, 4, 200, 112)
+    q.copy_(torch.from_numpy(rng.standard_normal((2, 4, 200, 112)).astype(
+        np.float32)).to("cuda", torch.bfloat16))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 200, 112)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(2))
+    assert q.data_ptr() % 16
+    before = dict(fa_ops.counts)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["tensor_core"] == before["tensor_core"] + 1
+    assert fa_ops.counts["tf32x3"] == before["tf32x3"]
+    want = fa_ref.flash_attention(q.contiguous(), k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 def test_smallest_head_dim_112_input_on_the_card(card, no_tf32):
@@ -502,21 +541,22 @@ def test_expert_prefetcher_on_the_card_as_on_the_cpu(card):
         assert on_card[key] == on_cpu[key], key
 
 
-def test_tf32x3_kernel_in_bf16_at_zamba2s_attention_shape(card, no_tf32):
+def test_tensor_core_kernel_at_zamba2s_attention_shape(card, no_tf32):
     """zamba2-7b's shared attention as its prefill calls it: bf16, B 4,
     32 q and kv heads, 2,048 positions, head_dim 112, causal, on the
     model's (B, S, H, D) layout viewed as (B, H, S, D).  It takes the
-    split-TF32 route, within bf16's 2e-2 of the plain version."""
+    tensor-core route, read in place through TMA, within bf16's 2e-2 of
+    the plain version."""
     rng = np.random.default_rng(112)
     q, k, v = (torch.from_numpy(rng.standard_normal((4, 2048, 32, 112))
                                 .astype(np.float32)).to("cuda", torch.bfloat16)
                .transpose(1, 2) for _ in range(3))
-    assert fa_ops.route(torch.bfloat16, 112) == "tf32x3"
+    assert fa_ops.route(torch.bfloat16, 112) == "tensor_core"
     before = dict(fa_ops.counts)
     got = fa_ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa_ops.counts["tf32x3"] == before["tf32x3"] + 1
-    assert fa_ops.counts["tensor_core"] == before["tensor_core"]
+    assert fa_ops.counts["tensor_core"] == before["tensor_core"] + 1
+    assert fa_ops.counts["tf32x3"] == before["tf32x3"]
     want = fa_ref.flash_attention(q, k, v)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,

@@ -141,11 +141,24 @@ ANY_D = [40, 72, 80, 96, 112, 144, 200, 256]
 @pytest.mark.parametrize("causal", [True, False])
 def test_any_head_dim_matches_jax_kernel(d, causal):
     """The reference takes any head_dim; so does the port (on the CPU its
-    plain version, on a card the split-TF32 kernel)."""
+    plain version, on a card the split-TF32 kernel in f32)."""
     q, k, v = qkv(np.random.default_rng(d), 1, 4, 2, 96, 96, d)
     np.testing.assert_allclose(port(q, k, v, causal=causal),
                                jax_kernel(q, k, v, causal=causal),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_head_dim_112_matches_jax_kernel(causal):
+    """zamba2-7b's shared attention in bf16 at head_dim 112 (the
+    tensor-core route on a card), GQA 4/2 over a ragged 130 positions,
+    against the JAX kernel in bf16: within 2e-2, one bf16 rounding of the
+    output, as the card tests hold it."""
+    q, k, v = qkv(np.random.default_rng(1120), 1, 4, 2, 130, 130, 112)
+    np.testing.assert_allclose(
+        port(q, k, v, dtype=torch.bfloat16, causal=causal),
+        jax_kernel(q, k, v, dtype=jnp.bfloat16, causal=causal),
+        rtol=2e-2, atol=2e-2)
 
 
 def test_smallest_head_dim_112_input_matches_jax_kernel():
@@ -210,15 +223,18 @@ def test_zero_padding_to_the_kernel_head_dim_changes_nothing(d, causal):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("head_dim", [1, 16, 32, 40, 48, 64, 80, 96, 112,
+                                      128, 144, 256])
 def test_route(dtype, head_dim):
-    """bf16 at the dense and GQA configs' head dims (64, 128) takes the
-    wgmma kernel; f32, and bf16 at 16 and 32, the split-TF32 kernel,
-    which keeps f32 accuracy on the tensor cores."""
-    want = ("tensor_core" if dtype == "bfloat16" and head_dim in (64, 128)
-            else "tf32x3")
+    """bf16 at every head_dim up to 128 takes the wgmma kernel, at the
+    instantiation of ``kernel_head_dim``; f32, and bf16 past 128, the
+    split-TF32 kernel, which keeps f32 accuracy on the tensor cores."""
+    want = ("tensor_core" if dtype == "bfloat16"
+            and ops.kernel_head_dim(head_dim) <= 128 else "tf32x3")
     assert ops.route(getattr(torch, dtype), head_dim) == want
     assert want in ops.ROUTES
+    if want == "tensor_core":
+        assert ops.kernel_head_dim(head_dim) in ops.TENSOR_CORE_HEAD_DIMS
 
 
 def test_cpu_path_launches_no_kernel():
@@ -263,11 +279,13 @@ def test_tensor_core_route_rejects_unaligned_inputs(case):
     assert (ops.counts, ref.counts) == before
 
 
-@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 32)])
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 32),
+                                     ("bfloat16", 144)])
 def test_cuda_core_route_takes_unaligned_inputs(dtype, d):
-    """The split-TF32 route takes views the wgmma route refuses: an offset
-    view goes in and gives what a contiguous copy gives (on a card its
-    kernel copies 4 bytes at a time there, not 16)."""
+    """Views the wgmma route refuses at head_dim 64 and 128 go in at the
+    others: an offset view gives what a contiguous copy gives (on a card
+    the split-TF32 kernel, f32 and bf16 past 128, copies 4 bytes at a
+    time there, not 16; the tensor-core kernel reads an aligned copy)."""
     dtype = getattr(torch, dtype)
     q = _offset_view((1, 4, 8, d), dtype)
     q.copy_(torch.from_numpy(np.random.default_rng(8).standard_normal(
@@ -275,6 +293,27 @@ def test_cuda_core_route_takes_unaligned_inputs(dtype, d):
     k = torch.ones((1, 2, 8, d), dtype=dtype)
     torch.testing.assert_close(ops.flash_attention(q, k, k),
                                ops.flash_attention(q.contiguous(), k, k),
+                               rtol=0, atol=0)
+
+
+def test_misaligned_bf16_head_dim_112_runs_the_plain_version():
+    """bf16 at head_dim 112 takes the tensor-core route, whose TMA loads
+    need 16-byte-aligned bases.  A view one element into its buffer, which
+    the CPU computed before that route took head_dim 112, still does: the
+    plain version runs and nothing raises (on a card the kernel reads an
+    aligned copy)."""
+    bf16 = torch.bfloat16
+    assert ops.route(bf16, 112) == "tensor_core"
+    q = _offset_view((1, 4, 20, 112), bf16)
+    q.copy_(torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, 4, 20, 112)).astype(np.float32)).to(bf16))
+    assert q.data_ptr() % 16
+    k = torch.ones((1, 2, 20, 112), dtype=bf16)
+    before = dict(ops.counts), ref.counts["flash_attention"]
+    got = ops.flash_attention(q, k, k)
+    assert ops.counts == before[0]
+    assert ref.counts["flash_attention"] == before[1] + 1
+    torch.testing.assert_close(got, ref.flash_attention(q.contiguous(), k, k),
                                rtol=0, atol=0)
 
 
@@ -413,8 +452,29 @@ def test_flash_rounding_tool_finds_its_lines_in_the_kernel():
 
     src = (ops._CSRC / "flash_attention_wgmma.cu").read_text()
     chained = flash_rounding.chained_source(src)
-    assert "fmaf(o[r][i], alpha" in src
-    assert "fmaf(o[r][i], alpha" not in chained
-    assert "wgmma_m64n64k16_rs(o[r], a, dv, 1);" in chained
+    assert "fmaf(o[i], alpha" in src
+    assert "fmaf(o[i], alpha" not in chained
+    assert "wgmma_m64nNk16_rs<N>(o, a, dv, 1);" in chained
     with pytest.raises(ValueError, match="no longer has"):
         flash_rounding.chained_source(chained)
+
+
+def test_flash_ab_reads_one_instantiations_sass():
+    """``tools/flash_ab.py`` compares two libraries' instantiations of the
+    tensor-core kernel instruction by instruction: it takes the listing
+    of the (head_dim, 3 parts) one only, without addresses or encodings."""
+    from tools import flash_ab
+
+    def function(d, parts, body):
+        return (f"\t\tFunction : _ZN_flash_attention_wgmma_kernelILi{d}ELi"
+                f"{parts}EEEv14CUtensorMap\n" + "".join(
+                    f"        /*{i * 16:04x}*/   {op} ;   /* 0x{i:016x} */\n"
+                    for i, op in enumerate(body)))
+
+    sass = ("\tcode for sm_90a\n" + function(128, 3, ["MOV R1, c[0x0][0x28]",
+                                                       "HGMMA.64x128x16"])
+            + function(128, 2, ["EXIT"]) + function(112, 3, ["BRA 0x40"]))
+    assert flash_ab.instructions(sass, 128) == ["MOV R1, c[0x0][0x28]",
+                                                "HGMMA.64x128x16"]
+    assert flash_ab.instructions(sass, 112) == ["BRA 0x40"]
+    assert flash_ab.instructions(sass, 64) == []

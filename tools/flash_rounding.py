@@ -37,10 +37,10 @@ REPO = Path(__file__).resolve().parents[1]
 #: the tile-sum lines of the kernel and their chained counterparts
 CHAINED_EDITS = (
     ("for (int i = 0; i < 32; ++i) t[i] = 0.f;   // overwritten (scale_d = 0)",
-     "for (int i = 0; i < 32; ++i) o[r][i] *= alpha[(i / 2) % 2];"),
-    ("wgmma_m64n64k16_rs(t, a, dv, kk > 0 || part < kParts - 1);",
-     "wgmma_m64n64k16_rs(o[r], a, dv, 1);"),
-    ("o[r][i] = fmaf(o[r][i], alpha[(i / 2) % 2], t[i]);", "t[i] = 0.f;"),
+     "for (int i = 0; i < 32; ++i) o[i] *= alpha[(i / 2) % 2];"),
+    ("wgmma_m64nNk16_rs<N>(t, a, dv, kk > 0 || part < kParts - 1);",
+     "wgmma_m64nNk16_rs<N>(o, a, dv, 1);"),
+    ("o[i] = fmaf(o[i], alpha[(i / 2) % 2], t[i]);", "t[i] = 0.f;"),
 )
 
 #: (label, q shape, k/v shape, causal): the llava and codeqwen prefill's
