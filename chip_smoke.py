@@ -126,7 +126,25 @@ Phases, in order; any failure exits non-zero and none is caught:
    chunked-against-recurrent check of phase 15.  Phases 15-16 print
    prefill s, decode tok/s, peak memory and one profile each of a prefill
    and a decode step (busy share, top device operations).
-17. One JSON line describing each ported kernel, then the result line.
+17. Training stablelm-1.6b (``TrainLoop``, ``make_steps``, AdamW,
+   checkpoints): (a) at full width cut to 2 layers in f32, batch 1 x 512,
+   one ``train_step`` of each attention (``"reference"``, ``"blocked"``)
+   on the card and on the CPU from the same weights: the losses within
+   1e-5, every gradient and every weight after the step within 1e-4 of
+   its tensor's max-abs, and blocked against reference on the card the
+   same; (b) at full width and depth in bf16 (``remat="full"``), batch 4
+   x 2,048 on a fixed batch, one warm-up step and 5 timed ones of each
+   attention: the first loss within (0.2 ln V, 3 ln V), the last below
+   it, every gradient finite (the global norm), no flash call, the two
+   first losses within 1e-2; warm seconds a step, tokens a second, model
+   FLOPs and MFU, peak memory and one profiled step; (d) the trained
+   model's ``prefill_step`` with ``attention_impl="pallas"`` launches the
+   tensor-core flash kernel 24 times and its logits meet phase 7's gate;
+   (e) its ``train_step`` with ``"pallas"`` raises; (c) at 2 layers in
+   bf16, a checkpoint restored bitwise, the resumed run's losses within
+   1e-4 of the uninterrupted run's, and ``run_with_restarts`` restarting
+   once with 8 losses.
+18. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -2151,6 +2169,470 @@ def ssm_phase(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+#: phase 17: stablelm-1.6b (the JAX trainer's default architecture,
+#: hf:stabilityai/stablelm-2-1_6b) trained at full width and depth in
+#: bf16 with every block recomputed (``remat="full"``, the config's
+#: default), batch 4 x 2,048, with each attention a trainer can take
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_IMPLS = ("reference", "blocked")
+#: timed steps after one warm-up step, on a fixed batch (memorisation, as
+#: tests/test_training.py: random streams have no learnable signal)
+TRAIN_STEPS = 5
+#: AdamW with a warmup short enough for the loss to fall within the
+#: steps taken
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 1000}
+#: (a) f32 at full width cut to 2 layers, batch 1 x 512, card against
+#: CPU: the loss within 1e-5 relative; each gradient, and each weight
+#: after the AdamW step, within 1e-4 of its tensor's max-abs
+TRAIN_F32_LAYERS, TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 1, 512
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-5, 1e-4
+#: (b) the two attentions' first losses, bf16 at full size
+TRAIN_IMPL_LOSS_RTOL = 1e-2
+#: (c) checkpoint and restart at the 2-layer cut in bf16, batch 2 x 256;
+#: the resumed run's losses against the uninterrupted run's: equal bit
+#: for bit on an H100 (PERF.md), held within 1e-4 relative, since CUDA's
+#: embedding backward may sum in another order and a bf16 ulp of one
+#: weight moves the loss by about 1e-6
+CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 256
+RESUME_LOSS_RTOL = 1e-4
+
+
+def train_cfg(**overrides):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(TRAIN_ARCH), **overrides)
+
+
+def worst_rel(torch, got: dict, want: dict) -> tuple[str, float]:
+    """The tensor whose largest difference between ``got`` and ``want``
+    (on ``got``'s device) is the largest share of its max-abs in
+    ``want``, and that share."""
+    worst = ("", 0.0)
+    for name, w in want.items():
+        g = got[name].detach().float()
+        w = w.detach().float().to(g.device)
+        diff = (g - w).abs()
+        scale = float(w.abs().max())
+        err = float(diff.max()) if diff.numel() else 0.0
+        rel = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        if rel > worst[1]:
+            worst = (name, rel)
+    return worst
+
+
+def train_step_recorded(torch, steps: dict, model, opt: dict, batch: dict):
+    """``steps["train_step"]``, keeping the gradients it hands to AdamW;
+    returns (loss, gradients by name, metrics)."""
+    from unittest import mock
+
+    from repro_torch.training import train_step as ts
+
+    grads, update = {}, ts.adamw_update
+
+    def record(cfg, params, g, o):
+        grads.update(g)
+        return update(cfg, params, g, o)
+
+    with mock.patch.object(ts, "adamw_update", record):
+        _, _, metrics = steps["train_step"](model, opt, batch)
+    return float(metrics["loss"]), grads, metrics
+
+
+def f32_train_check(torch) -> dict:
+    """Phase 17 (a): one ``train_step`` of each attention at full width
+    cut to ``TRAIN_F32_LAYERS`` layers in f32, on the card and on the
+    CPU from the same weights (drawn on the CPU, copied): the losses and
+    the gradients agree, and (for the first attention; the optimizer does
+    not depend on it) the card's weights after its AdamW step agree with
+    the CPU's AdamW applied to the card's gradients.  (Against
+    the CPU run's weights the first step is ill-conditioned: it moves a
+    weight by ``lr * g / (|g| + eps)``, so where the clipped gradient is
+    within a few hundred ``eps`` of zero a 1e-6 difference in ``g`` moves
+    the weight visibly; that comparison is printed, not held.)  On the
+    card, blocked attention against the reference attention."""
+    import copy
+
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import (
+        OptConfig, adamw_init, adamw_update,
+    )
+    from repro_torch.training.train_step import make_steps
+
+    base = train_cfg(n_layers=TRAIN_F32_LAYERS, dtype="float32")
+    weights = init_params(base, torch.Generator().manual_seed(0),
+                          device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, base.vocab_size, (TRAIN_F32_BATCH, TRAIN_F32_SEQ)).astype(np.int32)
+    out, card_grads = {}, {}
+    for impl in TRAIN_IMPLS:
+        cfg = dataclasses.replace(base, attention_impl=impl)
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            model = copy.deepcopy(weights).to(dev)
+            steps = make_steps(cfg, OptConfig(**TRAIN_OPT))
+            opt = steps["init_opt"](model)
+            t0 = time.perf_counter()
+            loss, grads, _ = train_step_recorded(
+                torch, steps, model, opt,
+                {"tokens": torch.as_tensor(tokens, device=dev)})
+            runs[dev] = (loss, grads, dict(model.named_parameters()),
+                         time.perf_counter() - t0)
+        (l_cpu, g_cpu, p_cpu, s_cpu), (l_card, g_card, p_card, s_card) = (
+            runs["cpu"], runs[DEVICE])
+        param_worst = None
+        if impl == TRAIN_IMPLS[0]:
+            # the CPU's AdamW on the card's gradients, from the same weights
+            stepped = dict(copy.deepcopy(weights).named_parameters())
+            adamw_update(OptConfig(**TRAIN_OPT), stepped,
+                         {n: g.cpu() for n, g in g_card.items()},
+                         adamw_init(stepped))
+            param_worst = worst_rel(torch, p_card, stepped)
+            del stepped
+        grad_worst = worst_rel(torch, g_card, g_cpu)
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        print(f"train (a) f32 {impl}, {TRAIN_F32_LAYERS} layers at full "
+              f"width, batch {TRAIN_F32_BATCH} x {TRAIN_F32_SEQ}: loss card "
+              f"{l_card:.7f} cpu {l_cpu:.7f} (rel {loss_rel:.3e}); worst "
+              f"gradient {grad_worst[1]:.3e} of its max-abs "
+              f"({grad_worst[0]}); "
+              + ("" if param_worst is None else
+                 f"worst weight after the card's AdamW against the CPU's on "
+                 f"the card's gradients {param_worst[1]:.3e} "
+                 f"({param_worst[0]}); ")
+              + f"worst weight against the CPU run's "
+              f"{worst_rel(torch, p_card, p_cpu)[1]:.3e} (not held); step "
+              f"{s_card:.3f} s card, {s_cpu:.3f} s cpu")
+        param_rel = 0.0 if param_worst is None else param_worst[1]
+        if loss_rel > TRAIN_LOSS_RTOL or grad_worst[1] > TRAIN_GRAD_REL \
+                or param_rel > TRAIN_GRAD_REL:
+            raise AssertionError(f"train (a) {impl}: the card's train step "
+                                 f"differs from the CPU's")
+        out[impl] = {"loss_rel": loss_rel, "grad_rel": grad_worst[1],
+                     "loss": l_card}
+        if param_worst is not None:
+            out[impl]["param_rel"] = param_rel
+        card_grads[impl] = g_card
+        del runs, g_cpu, p_cpu, p_card
+    ref_loss, blk_loss = out["reference"]["loss"], out["blocked"]["loss"]
+    impl_rel = abs(blk_loss - ref_loss) / abs(ref_loss)
+    impl_worst = worst_rel(torch, card_grads["blocked"],
+                           card_grads["reference"])
+    print(f"train (a) f32 on the card, blocked against reference: loss rel "
+          f"{impl_rel:.3e}, worst gradient {impl_worst[1]:.3e} of its "
+          f"max-abs ({impl_worst[0]})")
+    if impl_rel > TRAIN_LOSS_RTOL or impl_worst[1] > TRAIN_GRAD_REL:
+        raise AssertionError("train (a): blocked and reference attention "
+                             "differ on the card")
+    out["blocked_vs_reference"] = {"loss_rel": impl_rel,
+                                   "grad_rel": impl_worst[1]}
+    return out
+
+
+def train_flops(cfg, model, tokens: int) -> float:
+    """Model FLOPs of one step: 6 N tokens, N the weights but the input
+    embedding (a lookup; the head is a product), plus attention's 12 L B
+    S^2 (H hd) (the scores and P.V, forward and backward)."""
+    n = sum(p.numel() for p in model.parameters()) - model.embed.numel()
+    return 6.0 * n * tokens + 12.0 * cfg.n_layers * TRAIN_BATCH \
+        * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
+
+
+def train_full(torch, fa_ops, fa_ref, count_tables, impl: str, card: str,
+               tmp: Path) -> dict:
+    """Phase 17 (b), one attention: ``TrainLoop`` on the card at full width
+    and depth in bf16, one warm-up step, then ``TRAIN_STEPS`` timed ones on
+    a fixed batch, then one profiled.  Checkpoints are (c)'s: here
+    ``save_now`` only records its calls (a full checkpoint is 16.5 GB)."""
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = train_cfg(attention_impl=impl)
+    loop = TrainLoop(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=tmp,
+                     opt_cfg=OptConfig(**TRAIN_OPT), save_every=10 ** 9,
+                     device=DEVICE)
+    fixed = loop.pipeline.batch_at(0)
+    loop.pipeline.batch_at = lambda step: fixed
+    saves, metrics, step = [], [], loop.train_step
+    loop.save_now = saves.append
+
+    def recorded(model, opt, batch):
+        out = step(model, opt, batch)
+        metrics.append(out[2])
+        return out
+
+    loop.train_step = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop.init_or_restore()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, _ = loop.state
+    reset_counts(*count_tables)
+    t0 = time.perf_counter()
+    losses = loop.run(1, log_every=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses += loop.run(1 + TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    counted = counts_now(fa_ops, fa_ref)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train (b) {impl} path counts ({1 + TRAIN_STEPS} steps): "
+          f"{counted}")
+    if any(counted["kernel"].values()) or any(counted["plain"].values()):
+        raise AssertionError(f"train (b) {impl}: training called the flash "
+                             f"wrapper")
+    norms = [float(m["grad_norm"]) for m in metrics]
+    bounds = (0.2 * np.log(cfg.vocab_size), 3 * np.log(cfg.vocab_size))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, model, tokens)
+    print(f"train (b) {impl}: losses {[round(x, 4) for x in losses]}; grad "
+          f"norms {[round(x, 4) for x in norms]}; first step (warm-up) "
+          f"{warm_s:.3f} s, init {init_s:.2f} s; warm {step_s:.4f} s a step, "
+          f"{tokens / step_s:.1f} tokens/s; model FLOPs a step {flops:.4e} "
+          f"(6 N tokens + 12 L B S^2 H hd), {flops / step_s / 1e12:.1f} "
+          f"TFLOP/s, MFU {flops / step_s / PEAK_BF16_FLOP_PER_S:.4f} of "
+          f"{PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; max_memory_allocated "
+          f"{peak} B [{card}]")
+    if not bounds[0] < losses[0] < bounds[1]:
+        raise AssertionError(f"train (b) {impl}: first loss {losses[0]} "
+                             f"outside {bounds}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train (b) {impl}: the loss did not fall on "
+                             f"the fixed batch: {losses}")
+    if not all(np.isfinite(norms)):
+        # the global norm is finite exactly where every gradient is
+        raise AssertionError(f"train (b) {impl}: a gradient is not finite")
+    if saves != [1, 1 + TRAIN_STEPS]:           # each run's last step
+        raise AssertionError(f"train (b) {impl}: save_now calls {saves}")
+    model, opt = loop.state
+    batch = {"tokens": torch.as_tensor(fixed["tokens"], device=DEVICE)}
+    print(f"profile of one {cfg.name} train step ({impl}, warm):")
+    _, busy = profiled(torch, lambda: recorded(model, opt, batch))
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "tokens_s": tokens / step_s, "flops": flops,
+            "mfu": flops / step_s / PEAK_BF16_FLOP_PER_S, "peak_bytes": peak,
+            "busy_share": busy, "warmup_step_s": warm_s,
+            "launches": counted["kernel"]["flash_attention"],
+            "loop": loop, "batch": batch}
+
+
+def trained_prefill_check(torch, fa_ops, fa_ref, count_tables, model,
+                          opt: dict, batch: dict, card: str) -> dict:
+    """Phase 17 (d) and (e): the trained model's ``prefill_step`` with
+    ``attention_impl="pallas"`` launches the tensor-core flash kernel once
+    a layer, and its last-position bf16 logits meet phase 7's gate
+    against the plain route; its ``train_step`` raises on the card
+    without a launch (the kernels have no backward)."""
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import make_steps
+
+    cfg = train_cfg(attention_impl="pallas")
+    steps = make_steps(cfg, OptConfig(**TRAIN_OPT))
+    reset_counts(*count_tables)
+    logits = steps["prefill_step"](model, batch)
+    torch.cuda.synchronize()
+    counted = counts_now(fa_ops, fa_ref)
+    print(f"train (d) trained model's prefill_step counts: {counted}")
+    want = cfg.n_layers
+    if counted["kernel"] != {"flash_attention": want, "tensor_core": want,
+                             "tf32x3": 0} or any(counted["plain"].values()):
+        raise AssertionError(f"train (d): prefill_step did not launch the "
+                             f"tensor-core flash kernel, and only it, "
+                             f"{want} times: {counted}")
+    if tuple(logits.shape) != (TRAIN_BATCH, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"train (d): prefill_step logits "
+                             f"{tuple(logits.shape)} not finite or shaped")
+    with torch.no_grad():
+        gate = bf16_logits_gate(torch, fa_ref, cfg, model, batch, TRAIN_SEQ,
+                                f"{cfg.name} trained")
+    reset_counts(*count_tables)
+    small = {"tokens": batch["tokens"][:1, :64]}
+    try:
+        steps["train_step"](model, opt, small)
+    except NotImplementedError as e:
+        print(f"train (e) train_step with attention_impl='pallas' raised: "
+              f"{e}")
+    else:
+        raise AssertionError("train (e): a train step through the flash "
+                             "kernel did not raise")
+    if any(fa_ops.counts.values()) or any(fa_ref.counts.values()):
+        raise AssertionError("train (e): the raising step launched")
+    return {"launches": counted["kernel"]["tensor_core"], "gate": gate}
+
+
+def tensor_bits(torch, t):
+    """A tensor's raw words, to compare bit for bit."""
+    size = t.element_size()
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().view(ints[size]) if t.is_floating_point() else t
+
+
+def checkpoint_check(torch, card: str, tmp: Path) -> dict:
+    """Phase 17 (c): at full width cut to ``CKPT_LAYERS`` layers in bf16:
+    a run's ``save_now``, then a fresh ``TrainLoop.init_or_restore``
+    bitwise equal to it, and the resumed run's next losses against the
+    uninterrupted run's; ``run_with_restarts`` with a failure injected at
+    step 6 of 12 (checkpoints every 4) restarts once and records 8 losses,
+    as the JAX package's test.  The two runs after the restore save
+    nothing (their ``save_now`` records its calls): a checkpoint here is
+    5.1 GB and its save, not the step, would take the time."""
+    from repro_torch.launch.train import TrainLoop, run_with_restarts
+    from repro_torch.training.checkpoint import list_steps
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = train_cfg(n_layers=CKPT_LAYERS)
+    tmp.mkdir(parents=True)
+    usage = shutil.disk_usage(tmp)
+    print(f"train (c) checkpoint directory's disk: {usage.free} B free of "
+          f"{usage.total} B")
+
+    def make_loop(sub: str, save_every: int):
+        return TrainLoop(cfg, batch=CKPT_BATCH, seq=CKPT_SEQ,
+                         ckpt_dir=tmp / sub, opt_cfg=OptConfig(**TRAIN_OPT),
+                         save_every=save_every, device=DEVICE)
+
+    first = make_loop("resume", 10 ** 9)
+    first.init_or_restore()
+    save_s, save = [], first.save_now
+
+    def timed_save(step: int) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(step)
+        save_s.append(time.perf_counter() - t0)
+
+    first.save_now = timed_save
+    first.run(2)                                # ends in save_now(2)
+    step_dir = tmp / "resume" / "step_000000002"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    n_leaves = len(json.loads((step_dir / "manifest.json").read_text())
+                   ["names"])
+    second = make_loop("resume", 10 ** 9)
+    t0 = time.perf_counter()
+    start = second.init_or_restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if start != 2:
+        raise AssertionError(f"train (c): restored at step {start}")
+    (m1, o1), (m2, o2) = first.state, second.state
+    saved = {**{f"params.{n}": t for n, t in m1.state_dict().items()},
+             **{f"opt.{k}.{n}": t for k in ("m", "v")
+                for n, t in o1[k].items()}, "opt.step": o1["step"]}
+    restored = {**{f"params.{n}": t for n, t in m2.state_dict().items()},
+                **{f"opt.{k}.{n}": t for k in ("m", "v")
+                   for n, t in o2[k].items()}, "opt.step": o2["step"]}
+    if list(saved) != list(restored) or not all(
+            saved[n].dtype == restored[n].dtype and saved[n].device
+            == restored[n].device and torch.equal(
+                tensor_bits(torch, saved[n]), tensor_bits(torch, restored[n]))
+            for n in saved):
+        raise AssertionError("train (c): the restored state is not bitwise "
+                             "the saved one")
+    del saved, restored, m1, m2, o1, o2
+    unsaved = []
+    first.save_now = second.save_now = unsaved.append
+    uninterrupted = first.run(4)
+    resumed = second.run(4)
+    if unsaved != [4, 4]:
+        raise AssertionError(f"train (c): save_now calls {unsaved}")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(uninterrupted, resumed))
+    print(f"train (c) {cfg.name} at {CKPT_LAYERS} layers, bf16, batch "
+          f"{CKPT_BATCH} x {CKPT_SEQ}: a checkpoint of {n_leaves} leaves is "
+          f"{ckpt_bytes} B (save {save_s[0]:.2f} s, restore "
+          f"{restore_s:.2f} s), restored bitwise equal; steps 2-3 "
+          f"uninterrupted {uninterrupted}, resumed {resumed}: largest "
+          f"relative difference {rel:.3e} (tol {RESUME_LOSS_RTOL:g}) "
+          f"[{card}]")
+    if rel > RESUME_LOSS_RTOL:
+        raise AssertionError("train (c): the resumed run's losses differ "
+                             "from the uninterrupted run's")
+    del first, second
+    shutil.rmtree(tmp / "resume")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    losses, restarts = run_with_restarts(lambda: make_loop("restart", 4), 12,
+                                         inject_failure_at=6)
+    restart_s = time.perf_counter() - t0
+    kept = list_steps(tmp / "restart")
+    print(f"train (c) run_with_restarts(12 steps, checkpoints every 4, "
+          f"failure at step 6): {restarts} restart, {len(losses)} losses, "
+          f"checkpoints kept {kept}, {restart_s:.1f} s")
+    if restarts != 1 or len(losses) != 8 or kept != [4, 8, 12]:
+        raise AssertionError("train (c): the supervisor did not resume from "
+                             "step 4 once")
+    return {"ckpt_bytes": ckpt_bytes, "save_s": save_s[0],
+            "restore_s": restore_s, "resume_loss_rel": rel,
+            "restart_s": restart_s}
+
+
+def train_phase(torch, fa_ops, fa_ref, count_tables, card: str) -> dict:
+    """Phase 17: training stablelm-1.6b on the card: (a) the f32 check at
+    2 layers against the CPU, (b) ``TrainLoop`` at full width and depth in
+    bf16 with each attention a trainer takes, (d)-(e) the trained model's
+    ``prefill_step`` on the flash kernel and its ``train_step`` refused
+    there, (c) checkpoint, resume and crash-restart at 2 layers."""
+    import tempfile
+
+    from repro_torch.training.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg()
+    print(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.norm}), {cfg.dtype}, remat {cfg.remat}; "
+          f"{OptConfig(**TRAIN_OPT)}")
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"f32": f32_train_check(torch)}
+    torch.cuda.empty_cache()
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        for impl in TRAIN_IMPLS:
+            full[impl] = train_full(torch, fa_ops, fa_ref, count_tables, impl,
+                                    card, tmp / impl)
+            if impl != TRAIN_IMPLS[-1]:
+                del full[impl]["loop"], full[impl]["batch"]
+                torch.cuda.empty_cache()
+        first = [full[impl]["losses"][0] for impl in TRAIN_IMPLS]
+        rel = abs(first[1] - first[0]) / abs(first[0])
+        print(f"train (b): first losses {dict(zip(TRAIN_IMPLS, first))}, "
+              f"relative difference {rel:.3e} (tol {TRAIN_IMPL_LOSS_RTOL:g})")
+        if rel > TRAIN_IMPL_LOSS_RTOL:
+            raise AssertionError("train (b): the two attentions' first losses "
+                                 "differ")
+        last = full[TRAIN_IMPLS[-1]]
+        model, opt = last.pop("loop").state
+        seconds["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["prefill"] = trained_prefill_check(
+            torch, fa_ops, fa_ref, count_tables, model, opt,
+            last.pop("batch"), card)
+        del model, opt
+        torch.cuda.empty_cache()
+        seconds["d-e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ckpt"] = checkpoint_check(torch, card, tmp / "ckpt")
+        torch.cuda.empty_cache()
+        seconds["c"] = time.perf_counter() - t0
+    out["full"] = full
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"training phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -2556,10 +3038,13 @@ def main(argv=None) -> int:
         ssm_families[spec.name] = ssm_phase(torch, fa_ops, fa_ref,
                                             count_tables, spec, card)
         phase_s[spec.name] = ssm_families[spec.name]["seconds"]
-    print("phases 9-16 seconds: " + ", ".join(
+    # -- phase 17: training stablelm-1.6b --------------------------------
+    training = train_phase(torch, fa_ops, fa_ref, count_tables, card)
+    phase_s["training"] = training["seconds"]
+    print("phases 9-17 seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in phase_s.items()))
 
-    # -- phase 17: the kernels line and the result ------------------------
+    # -- phase 18: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -2632,7 +3117,16 @@ def main(argv=None) -> int:
         hybrid_prefill_busy_share=hybrid["prefill_busy_share"],
         hybrid_prefill_flash_ms=hybrid["prefill_flash_ms"],
         hybrid_decode_busy_share=hybrid["decode_busy_share"],
-        d112_tensor_core_instructions=hgmma[112])
+        d112_tensor_core_instructions=hgmma[112],
+        # training launches no flash kernel (it has no backward); the
+        # trained model's prefill_step launches it once a layer
+        train_launches={impl: r["launches"]
+                        for impl, r in training["full"].items()},
+        trained_prefill_step_launches=training["prefill"]["launches"],
+        trained_gate_mean_ratio=training["prefill"]["gate"]["mean_ratio"],
+        train={impl: {k: r[k] for k in (
+            "step_s", "tokens_s", "flops", "mfu", "peak_bytes",
+            "busy_share")} for impl, r in training["full"].items()})
     kernels[-1].update(
         f32_family_launches={name: fam["f32"]["launches"]
                              for name, fam in serving.items()},

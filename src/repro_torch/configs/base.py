@@ -7,10 +7,12 @@ plus the shape grid every architecture is exercised against.  ``reduced()``
 derives the tiny same-family config used by the CPU smoke tests.
 
 ``attention_impl`` keeps the reference's values, so one config means the
-same model in both packages: ``"reference"`` is the plain attention, and
-``"pallas"`` (the reference's Pallas TPU kernel) routes prefill attention
-to the port's hand-written Hopper flash-attention kernel
-(:mod:`repro_torch.kernels.flash_attention`).
+same model in both packages: ``"reference"`` is the plain attention,
+``"blocked"`` the online-softmax loop with its own backward
+(:mod:`repro_torch.models.blocked_attention`), and ``"pallas"`` (the
+reference's Pallas TPU kernel) routes prefill attention to the port's
+hand-written Hopper flash-attention kernel
+(:mod:`repro_torch.kernels.flash_attention`), which has no backward.
 """
 
 from __future__ import annotations

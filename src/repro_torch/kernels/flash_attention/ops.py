@@ -43,6 +43,13 @@ only the head_dim to be contiguous, so a transposed view of the model's
 back into (B, S, H, D) for free.  Masking of ragged lengths happens in
 the kernels: no length is padded.
 
+Neither kernel has a backward, as the reference's Pallas kernel has none
+(``jax.grad`` through it fails): where autograd would record the call
+(grad enabled and q, k or v requiring grad) the wrapper raises
+``NotImplementedError`` on every device, rather than return an output
+without a gradient.  Training takes ``attention_impl="reference"`` or
+``"blocked"``.
+
 ``counts`` holds the kernel launches since the last reset: the wrapper
 adds one to ``"flash_attention"`` and one to its route's count where it
 launches a kernel, and nowhere else.
@@ -211,7 +218,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     end-aligned causal mask (row r sees columns <= r + Lk - Lq); a row that
     sees no column gives 0.  ``sm_scale`` defaults to ``D ** -0.5``.
     float32 or bfloat16; any head_dim on the CPU, 1 to
-    :data:`MAX_HEAD_DIM` on a card."""
+    :data:`MAX_HEAD_DIM` on a card.  Raises ``NotImplementedError`` where
+    autograd would record the call: the kernels have no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash kernels have no backward, as in the JAX package: "
+            "train with attention_impl='reference' or 'blocked', or call "
+            "under torch.no_grad()")
     _check(q, k, v)
     if on_cpu(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)

@@ -7,10 +7,13 @@ prefill path:
 
 * ``"pallas"`` runs the hand-written Hopper flash-attention kernel
   (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`; its
-  plain version on CPU tensors);
+  plain version on CPU tensors).  It has no backward, as in the
+  reference, and raises under autograd;
 * ``"reference"`` runs the plain einsum path, :func:`_reference_attention`;
-* ``"blocked"`` (the reference's ``custom_vjp`` training attention) is
-  not ported yet: ROADMAP Queue 1 item 5.
+* ``"blocked"`` runs the online-softmax loop over KV blocks with its
+  hand-written backward
+  (:func:`repro_torch.models.blocked_attention.blocked_attention`), the
+  reference's ``custom_vjp`` training attention.
 
 Decode stays on the plain path, as in the reference.
 """
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import ops as flash_ops
+from .blocked_attention import blocked_attention
 from .layers import Params, dense_init, rope
 
 __all__ = ["attn_init", "attention", "decode_attention", "init_layer_cache"]
@@ -71,10 +75,7 @@ def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal).transpose(1, 2)
     elif cfg.attention_impl == "blocked" and x.shape[1] > 1:
-        raise NotImplementedError(
-            "attention_impl='blocked' (models/blocked_attention.py, a "
-            "custom_vjp for training) is not ported yet: ROADMAP Queue 1 "
-            "item 5")
+        out = blocked_attention(q, k, v, causal=causal)
     else:
         out = _reference_attention(q, k, v, causal=causal)
     b, s, _, _ = out.shape

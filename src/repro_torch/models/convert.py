@@ -5,7 +5,9 @@ already turned into nested dicts of numpy arrays by the caller (this
 module never imports jax), and builds the port's :class:`DenseLM` (dense,
 moe, vlm), :class:`EncDecLM` (audio), :class:`XLSTMLM` (ssm) or
 :class:`ZambaLM` (hybrid) with the same weights in the same ``(in,
-out)`` orientation.
+out)`` orientation.  ``opt_from_jax`` carries the reference's AdamW state
+(``repro.training.optimizer.adamw_init``'s tree) across by the same
+mapping, keyed by the port's parameter names.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .transformer import (
     ZambaLM, xlstm_layout, zamba_layout,
 )
 
-__all__ = ["params_from_jax"]
+__all__ = ["opt_from_jax", "params_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -120,3 +122,18 @@ def params_from_jax(cfg, tree: dict, device=None):
     return DenseLM(embed, _blocks(DenseBlock, tree["layers"], cfg.n_layers,
                                   dev),
                    final_norm, head)
+
+
+def opt_from_jax(cfg, opt: dict, device=None) -> dict:
+    """The reference's optimizer state ``{"m", "v": trees shaped as the
+    params, "step": scalar}``, of numpy arrays, as the port's
+    (:func:`repro_torch.training.optimizer.adamw_init`'s layout): ``"m"``
+    and ``"v"`` keyed by the names of the model's ``named_parameters``,
+    ``"step"`` a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    out = {name: {n: t.detach() for n, t in
+                  params_from_jax(cfg, opt[name], dev).named_parameters()}
+           for name in ("m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

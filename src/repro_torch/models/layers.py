@@ -30,8 +30,9 @@ class Params(nn.Module):
     A value that is itself a module (a norm's ``Params`` inside a block)
     is kept as a submodule.
 
-    Weights are inference-only (``requires_grad=False``): training is not
-    ported yet."""
+    Weights are made with ``requires_grad=False``, so serving records no
+    autograd graph; the trainer switches them on with
+    ``model.requires_grad_(True)`` (:mod:`repro_torch.training`)."""
 
     def __init__(self, **tensors):
         super().__init__()

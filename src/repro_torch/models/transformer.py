@@ -10,6 +10,11 @@ an ``nn.Module`` of weights (:class:`DenseLM` for dense, moe and vlm;
 :class:`EncDecLM` for audio; :class:`XLSTMLM` for ssm; :class:`ZambaLM`
 for hybrid); the functions take ``cfg`` first, as in the reference, and a
 Python loop over the blocks takes the place of ``jax.lax.scan``.
+``forward`` and ``loss_fn`` are differentiable: where the reference wraps
+a scanned block in ``jax.checkpoint`` (``cfg.remat == "full"``), the
+block runs under ``torch.utils.checkpoint`` while autograd records, so
+its activations are recomputed in the backward; the serving functions
+(``fill_cache``, ``prefill``, ``decode_step``) run without autograd.
 
 Public API:
   init_params(cfg, generator, device=None)  -> model
@@ -49,10 +54,12 @@ reference unembeds every position and keeps the last, the same values.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import (
@@ -300,6 +307,19 @@ def _ffn(cfg, p: DenseBlock, h: torch.Tensor) -> torch.Tensor:
     return moe_apply(p.moe, cfg, h) if cfg.is_moe else swiglu_mlp(p.mlp, h)
 
 
+def _remat(cfg, block: nn.Module, fn: Callable, x: torch.Tensor
+           ) -> torch.Tensor:
+    """``fn(x)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``) where the reference's ``_maybe_remat``
+    applies ``jax.checkpoint``: ``cfg.remat == "full"`` and autograd
+    records through ``x`` or ``block``'s weights."""
+    if cfg.remat == "full" and torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad
+                                   for w in block.parameters())):
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
 def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
                  positions: torch.Tensor):
     """One block; returns (x, (k, v)) with the block's k/v heads."""
@@ -342,13 +362,17 @@ def _whisper_encode(cfg, model: EncDecLM, frames: torch.Tensor
                                     model.device).to(dt)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device).expand(x.shape[:2])
-    for p in model.encoder:
+
+    def block(p, x):
         h = norm_apply(p.ln1, x, cfg.norm)
         a, _ = attention(p.attn, cfg, h, positions, causal=False,
                          use_rope=False)
         x = x + a
         h = norm_apply(p.ln2, x, cfg.norm)
-        x = x + gelu_mlp(p.mlp, h)
+        return x + gelu_mlp(p.mlp, h)
+
+    for p in model.encoder:
+        x = _remat(cfg, p, functools.partial(block, p), x)
     return norm_apply(model.enc_norm, x, cfg.norm)
 
 
@@ -362,7 +386,8 @@ def _whisper_decode_full(cfg, model: EncDecLM, tokens: torch.Tensor,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
-    for p in model.decoder:
+
+    def block(p, x):
         h = norm_apply(p.ln1, x, cfg.norm)
         a, _ = attention(p.attn, cfg, h, positions, use_rope=False)
         x = x + a
@@ -371,7 +396,10 @@ def _whisper_decode_full(cfg, model: EncDecLM, tokens: torch.Tensor,
                          kv_x=enc_out, use_rope=False)
         x = x + a
         h = norm_apply(p.ln2, x, cfg.norm)
-        x = x + gelu_mlp(p.mlp, h)
+        return x + gelu_mlp(p.mlp, h)
+
+    for p in model.decoder:
+        x = _remat(cfg, p, functools.partial(block, p), x)
     return x
 
 
@@ -388,11 +416,11 @@ def _cross_decode(p, cfg, x: torch.Tensor, xk: torch.Tensor,
 # -- the public functions -----------------------------------------------------
 
 
-@torch.no_grad()
 def forward(cfg, model, batch: dict, *,
             last_only: bool = False) -> torch.Tensor:
-    """Full-sequence logits.  ``last_only`` unembeds the final position
-    only (serving prefill needs just the next-token distribution)."""
+    """Full-sequence logits (training / prefill).  ``last_only`` unembeds
+    the final position only (serving prefill needs just the next-token
+    distribution)."""
     if cfg.family == "audio":
         enc_out = _whisper_encode(cfg, model, batch["frames"])
         x = _whisper_decode_full(cfg, model, batch["tokens"], enc_out)
@@ -409,32 +437,43 @@ def forward(cfg, model, batch: dict, *,
 
 def _backbone_full(cfg, model, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence pass through the blocks (train / prefill)."""
+    """Full-sequence pass through the blocks (train / prefill).  The
+    blocks the reference recomputes under ``cfg.remat == "full"``: each
+    dense block, the mLSTM blocks (not the sLSTM ones) and the Mamba2
+    blocks (not the shared attention block)."""
     if cfg.family == "ssm":
         for mblocks, sblock in zip(model.mblocks, model.sblocks):
             for p in mblocks:
-                x = ssm.mlstm_apply(p, cfg, x)
+                x = _remat(cfg, p, functools.partial(ssm.mlstm_apply, p, cfg),
+                           x)
             x = ssm.slstm_apply(sblock, cfg, x)
         return x
     if cfg.family == "hybrid":
+        def mamba(p, x):
+            return _remat(cfg, p, functools.partial(ssm.mamba2_apply, p, cfg),
+                          x)
+
         for mblocks in model.mamba_sb:
             for p in mblocks:
-                x = ssm.mamba2_apply(p, cfg, x)
+                x = mamba(p, x)
             x, _ = _dense_block(cfg, model.shared_attn, x, positions)
         for p in model.mamba_tail:
-            x = ssm.mamba2_apply(p, cfg, x)
+            x = mamba(p, x)
         return x
+
+    def block(p, x):
+        return _dense_block(cfg, p, x, positions)[0]
+
     for p in model.layers:
-        x, _ = _dense_block(cfg, p, x, positions)
+        x = _remat(cfg, p, functools.partial(block, p), x)
     return x
 
 
-@torch.no_grad()
 def loss_fn(cfg, model, batch: dict):
     """Next-token cross entropy, the mean over every (row, position) but
     the last; for vlm only the text positions count.  Returns (loss,
-    {"loss", "perplexity"}), f32 scalars.  Forward only: training is not
-    ported yet."""
+    {"loss", "perplexity"}), f32 scalars; differentiable with respect to
+    the weights where they require grad."""
     logits = forward(cfg, model, batch).float()
     tokens = batch["tokens"].to(model.device)
     if cfg.family == "vlm":

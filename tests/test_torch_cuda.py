@@ -594,3 +594,94 @@ def test_ssm_and_hybrid_on_the_card_equal_the_cpu(card, no_tf32, arch,
     np.testing.assert_array_equal(on_card, on_cpu)
     assert fa_ops.counts["tf32x3"] == before[0]["tf32x3"] + 2 * uses
     assert fa_ref.counts == before[1]
+
+
+@pytest.mark.parametrize("impl", ["reference", "blocked"])
+def test_train_step_on_the_card_equals_the_cpu(card, no_tf32, impl):
+    """One reduced stablelm ``train_step`` in f32 (every block
+    recomputed) on the card and on the CPU from the same weights: the
+    loss within 1e-5, every gradient within 1e-4 of its tensor's max-abs,
+    and the card's weights after its AdamW step within the same of the
+    CPU's AdamW on the card's gradients (chip_smoke.py's phase 17 (a) at
+    the reduced size)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import (
+        OptConfig, adamw_init, adamw_update,
+    )
+    from repro_torch.training.train_step import make_steps
+
+    cfg = configs.reduced(configs.get_config("stablelm-1.6b"),
+                          attention_impl=impl, remat="full")
+    weights = init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(weights).to(dev)
+        steps = make_steps(cfg)
+        opt = steps["init_opt"](model)
+        loss, grads, _ = chip_smoke.train_step_recorded(
+            torch, steps, model, opt, {"tokens": tokens.to(dev)})
+        runs[dev] = loss, grads, dict(model.named_parameters())
+    (l_cpu, g_cpu, _), (l_card, g_card, p_card) = runs["cpu"], \
+        runs["cuda"]
+    assert l_card == pytest.approx(l_cpu, rel=chip_smoke.TRAIN_LOSS_RTOL)
+    assert chip_smoke.worst_rel(torch, g_card, g_cpu)[1] \
+        <= chip_smoke.TRAIN_GRAD_REL
+    stepped = dict(copy.deepcopy(weights).named_parameters())
+    adamw_update(OptConfig(), stepped,       # make_steps' default
+                 {n: g.cpu() for n, g in g_card.items()},
+                 adamw_init(stepped))
+    assert chip_smoke.worst_rel(torch, p_card, stepped)[1] \
+        <= chip_smoke.TRAIN_GRAD_REL
+    assert all(p.device.type == "cuda" for p in p_card.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_raises_under_autograd_on_the_card(card, dtype):
+    """No backward on either route: on CUDA tensors that require grad the
+    wrapper raises before any build or launch; without grad it runs."""
+    q, k, v = (torch.randn(1, 2, 32, 64, device="cuda", dtype=dtype)
+               for _ in range(3))
+    before = dict(fa_ops.counts), dict(fa_ref.counts)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fa_ops.flash_attention(q.requires_grad_(), k, v)
+    assert fa_ops.counts == before[0] and fa_ref.counts == before[1]
+    with torch.no_grad():
+        out = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["flash_attention"] == \
+        before[0]["flash_attention"] + 1
+    torch.testing.assert_close(out.float(), fa_ref.flash_attention(
+        q.detach(), k, v).float(), rtol=2e-2, atol=2e-2)
+
+
+def test_checkpoint_restores_to_the_card(card, tmp_path):
+    """A checkpoint saved from the card (bf16 weights, f32 moments, an
+    int32 step) restores onto it bit for bit with ``device="cuda"``, and
+    onto the CPU with ``device="cpu"``."""
+    from repro_torch.training.checkpoint import restore, save
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"params": {"w": torch.randn(64, 48, device="cuda",
+                                        generator=gen).bfloat16()},
+            "opt": {"m": {"w": torch.randn(64, 48, device="cuda",
+                                           generator=gen)},
+                    "step": torch.tensor(3, dtype=torch.int32,
+                                         device="cuda")}}
+    save(tmp_path, 3, tree)
+    like = {"params": {"w": torch.zeros(64, 48, dtype=torch.bfloat16)},
+            "opt": {"m": {"w": torch.zeros(64, 48)},
+                    "step": torch.zeros((), dtype=torch.int32)}}
+    for dev in ("cuda", "cpu"):
+        out = restore(tmp_path, 3, like, device=dev)
+        for got, want in ((out["params"]["w"], tree["params"]["w"]),
+                          (out["opt"]["m"]["w"], tree["opt"]["m"]["w"]),
+                          (out["opt"]["step"], tree["opt"]["step"])):
+            assert got.device.type == dev and got.dtype == want.dtype
+            assert torch.equal(chip_smoke.tensor_bits(torch, got.cpu()),
+                               chip_smoke.tensor_bits(torch, want.cpu()))

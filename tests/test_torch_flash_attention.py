@@ -250,6 +250,27 @@ def test_cpu_path_launches_no_kernel():
     assert ref.counts["flash_attention"] == before[1] + 4
 
 
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_wrapper_raises_under_autograd(which):
+    """Neither kernel has a backward (nor has the JAX kernel): where
+    autograd would record the call the wrapper raises, on the CPU too,
+    and runs nothing, not the differentiable plain version; under
+    ``torch.no_grad()`` it computes."""
+    rng = np.random.default_rng(8)
+    t = dict(zip("qkv", (torch.from_numpy(a) for a in
+                         qkv(rng, 1, 4, 2, 24, 24, 16))))
+    t[which].requires_grad_()
+    before = dict(ops.counts), ref.counts["flash_attention"]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(t["q"], t["k"], t["v"])
+    assert ops.counts == before[0]
+    assert ref.counts["flash_attention"] == before[1]
+    with torch.no_grad():
+        out = ops.flash_attention(t["q"], t["k"], t["v"])
+    assert not out.requires_grad
+    assert ref.counts["flash_attention"] == before[1] + 1
+
+
 def _offset_view(shape, dtype, offset=1):
     """A (B, H, L, D) view that starts ``offset`` elements into a buffer."""
     n = int(np.prod(shape))

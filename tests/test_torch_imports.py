@@ -30,7 +30,10 @@ import repro_torch.core.cluster, repro_torch.core.membership
 import repro_torch.core.chaos, repro_torch.core.versions
 import repro_torch.configs, repro_torch.models, repro_torch.serving
 import repro_torch.serving.loadgen, repro_torch.serving.prefetcher
-import repro_torch.launch.serve
+import repro_torch.launch.serve, repro_torch.launch.train
+import repro_torch.models.blocked_attention
+import repro_torch.training, repro_torch.training.checkpoint
+import repro_torch.training.compression, repro_torch.data
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
@@ -82,4 +85,10 @@ def test_scan_covers_the_port():
             port + "core/cluster.py", port + "core/membership.py",
             port + "core/chaos.py", port + "core/versions.py",
             port + "serving/loadgen.py",
-            port + "serving/prefetcher.py"} <= rel
+            port + "serving/prefetcher.py",
+            port + "models/blocked_attention.py",
+            port + "training/__init__.py", port + "training/optimizer.py",
+            port + "training/compression.py",
+            port + "training/train_step.py",
+            port + "training/checkpoint.py", port + "data/__init__.py",
+            port + "data/pipeline.py", port + "launch/train.py"} <= rel

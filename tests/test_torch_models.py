@@ -148,13 +148,48 @@ def test_attention_block(impl, arch, n_kv):
     close(gv, wv)
 
 
-def test_blocked_attention_is_not_ported():
-    _, tcfg = cfg_pair("codeqwen1.5-7b", attention_impl="blocked")
-    w = {k: torch.from_numpy(a)
-         for k, a in _attn_weights(np.random.default_rng(0), tcfg).items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        attention.attention(w, tcfg, torch.zeros((1, 4, tcfg.d_model)),
-                            torch.zeros((1, 4), dtype=torch.int32))
+def test_blocked_attention_route_matches_jax():
+    """``attention_impl="blocked"`` runs the port's blocked loop (the
+    reference's ``custom_vjp`` training attention): the attention block
+    against the reference's blocked route, and the whole model's logits
+    against the reference's (as its
+    ``test_model_forward_blocked_equals_reference``)."""
+    jcfg, tcfg = cfg_pair("codeqwen1.5-7b", attention_impl="blocked")
+    rng = np.random.default_rng(0)
+    w = _attn_weights(rng, tcfg)
+    x = rng.standard_normal((2, 40, tcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40)).copy()
+    got, _ = attention.attention(
+        {k: torch.from_numpy(a) for k, a in w.items()}, tcfg,
+        torch.from_numpy(x), torch.from_numpy(pos))
+    want, _ = jax_attn.attention(
+        {k: jnp.asarray(a) for k, a in w.items()}, jcfg, jnp.asarray(x),
+        jnp.asarray(pos))
+    close(got, want)
+    params = jax_tf.init_params(jcfg, jax.random.key(0))
+    model = params_from_jax(tcfg, tree_to_numpy(params), device="cpu")
+    tokens = rng.integers(0, tcfg.vocab_size, (2, 32)).astype(np.int32)
+    want = jax_tf.forward(jcfg, params, {"tokens": jnp.asarray(tokens)})
+    got = transformer.forward(tcfg, model,
+                              {"tokens": torch.from_numpy(tokens)})
+    close(got, want)
+
+
+def test_pallas_route_raises_under_autograd():
+    """The flash kernels have no backward (``jax.grad`` through the
+    reference's fails too): where autograd would record the call, the
+    ``"pallas"`` route raises on the CPU as on a card, rather than run the
+    differentiable plain version; without grad it computes."""
+    _, tcfg = cfg_pair("codeqwen1.5-7b", attention_impl="pallas")
+    w = {k: torch.from_numpy(a).requires_grad_()
+         for k, a in _attn_weights(np.random.default_rng(1), tcfg).items()}
+    x = torch.zeros((1, 4, tcfg.d_model))
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        attention.attention(w, tcfg, x, pos)
+    with torch.no_grad():
+        out, _ = attention.attention(w, tcfg, x, pos)
+    assert out.shape == (1, 4, tcfg.d_model)
 
 
 @pytest.mark.parametrize("pos", [0, 5, 15])
