@@ -144,7 +144,20 @@ Phases, in order; any failure exits non-zero and none is caught:
    bf16, a checkpoint restored bitwise, the resumed run's losses within
    1e-4 of the uninterrupted run's, and ``run_with_restarts`` restarting
    once with 8 losses.
-18. One JSON line describing each ported kernel, then the result line.
+18. Sharding and launch on ``torch.distributed``, on a one-rank NCCL
+   group started from a ``FileStore``, over a (1, 1) mesh: (a)
+   stablelm-1.6b's ``TrainLoop(..., mesh=)`` at full width and depth
+   (bf16, ``remat="full"``, 4 x 2,048, ``"reference"`` attention, 3
+   steps), every parameter a DTensor: its first loss within 1e-4 relative
+   of phase 17's unsharded loop's, and in f32 at 2 layers the sharded loss
+   within 1e-6 of ``loss_fn``'s; (b) qwen3-moe-235b-a22b at phase 12's cut
+   with ``moe_shard="ep_infer"`` through ``ServingEngine``: 8 tensor-core
+   flash launches a prefill and nothing else, phase 12's bf16 gate, and
+   in f32 at 2 layers the card's EP against the CPU's within
+   ``F32_LOGITS_TOL``; (c) ``launch.dryrun.run_cell`` (in a process of its
+   own) gives the bytes (a) held of parameters and moments, to the byte,
+   then prints the production cells of stablelm-1.6b and qwen3-moe.
+19. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -157,6 +170,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1654,12 +1668,14 @@ class RoutingRecorder:
     def __init__(self, torch, moe):
         self.torch, self.calls, self._route = torch, [], moe.moe_route
 
-    def __call__(self, p, cfg, x, capacity):
+    def __call__(self, p, cfg, x, capacity, router=None):
         torch = self.torch
         b, s, _ = x.shape
         k = cfg.experts_per_token
-        topv, ef, keep, slot = self._route(p, cfg, x, capacity)
-        gates = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+        topv, ef, keep, slot = self._route(p, cfg, x, capacity,
+                                           router=router)
+        router = p["router"] if router is None else router
+        gates = torch.softmax(x.float() @ router.float(), dim=-1)
         top = torch.topk(gates, k + 1, dim=-1).values
         # by expert, not by rank: two of a token's top k may swap ranks
         experts, order = ef.reshape(b, s, k).sort(dim=-1)
@@ -2341,6 +2357,20 @@ def train_flops(cfg, model, tokens: int) -> float:
         * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
 
 
+def reference_train_flops(cfg) -> dict:
+    """The reference's two counts of one train step at the card's shape,
+    from the port's launch modules: ``estimate.cell_estimate`` (causal
+    attention's half of S^2, 3 forwards plus one for remat) and
+    ``dryrun.model_flops`` (6 N tokens, the embedding left out)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.launch.estimate import cell_estimate
+
+    shape = ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    return {"estimate.cell_estimate": cell_estimate(cfg, shape)["flops"],
+            "dryrun.model_flops (6 N D)": model_flops(cfg, shape)}
+
+
 def train_full(torch, fa_ops, fa_ref, count_tables, impl: str, card: str,
                tmp: Path) -> dict:
     """Phase 17 (b), one attention: ``TrainLoop`` on the card at full width
@@ -2400,6 +2430,10 @@ def train_full(torch, fa_ops, fa_ref, count_tables, impl: str, card: str,
           f"TFLOP/s, MFU {flops / step_s / PEAK_BF16_FLOP_PER_S:.4f} of "
           f"{PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; max_memory_allocated "
           f"{peak} B [{card}]")
+    ref_flops = reference_train_flops(cfg)
+    print(f"train (b) {impl}: the reference's counts of a step's FLOPs: "
+          + ", ".join(f"{name} {f:.4e} (MFU {f / step_s / PEAK_BF16_FLOP_PER_S:.4f})"
+                      for name, f in ref_flops.items()))
     if not bounds[0] < losses[0] < bounds[1]:
         raise AssertionError(f"train (b) {impl}: first loss {losses[0]} "
                              f"outside {bounds}")
@@ -2628,6 +2662,355 @@ def train_phase(torch, fa_ops, fa_ref, count_tables, card: str) -> dict:
     out["full"] = full
     out["seconds"] = time.perf_counter() - t_phase
     print(f"training phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharding and launch on torch.distributed
+# ---------------------------------------------------------------------------
+
+#: phase 18 (a): the sharded step's first loss against phase 17's unsharded
+#: one (the same seed, batch and optimizer) and, in f32 at 2 layers, the
+#: sharded loss against the plain ``loss_fn``
+SHARD_STEPS = 3
+SHARD_LOSS_RTOL, SHARD_F32_RTOL = 1e-4, 1e-6
+SHARD_F32_BATCH, SHARD_F32_SEQ = 2, 512
+#: (b) qwen3-moe-235b-a22b's EP prefill at phase 12's cut and shape; its
+#: f32 check against the CPU at 2 layers on 2 x 128 tokens (the CPU's
+#: expert products and unembedding stay seconds)
+EP_NEW = 4
+EP_F32_LAYERS, EP_F32_BATCH, EP_F32_SEQ = 2, 2, 128
+#: (c) the production cells printed beside the card's
+DRYRUN_ARCHS = ("stablelm-1.6b", "qwen3-moe-235b-a22b")
+
+_DRYRUN = r"""
+import json, sys
+from repro_torch.configs import SHAPES, ShapeConfig, get_config
+from repro_torch.launch.dryrun import run_cell
+import dataclasses
+arch, batch, seq, impl = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    sys.argv[4]
+cfg = dataclasses.replace(get_config(arch), attention_impl=impl)
+out = {"card": run_cell(arch, ShapeConfig("train_card", seq, batch, "train"),
+                        False, mesh_shape=(1, 1), cfg=cfg)}
+for name in sys.argv[5].split(","):
+    for shape in SHAPES:
+        for multi in (False, True):
+            r = run_cell(name, shape, multi, auto_opt=True)
+            out[f"{name} {shape} {r['mesh']}"] = {
+                k: r.get(k) for k in ("status", "memory", "reason", "error")
+            } | ({"dominant": r["roofline"]["dominant"],
+                  "compute_s": r["roofline"]["compute_s"],
+                  "memory_s": r["roofline"]["memory_s"],
+                  "collective_s": r["roofline"]["collective_s"]}
+                 if r["status"] == "ok" else {})
+print(json.dumps(out))
+"""
+
+
+def ep_clean_rows(torch, card: list, cpu: list, b: int, s: int):
+    """Rows of an EP pass both paths route alike.  EP routes a rank's
+    tokens as one flat sequence (row-major over the batch), so a token's
+    position in its expert, and with it its kept mask, depends on every
+    token before it: a row is clean when it lies wholly before the first
+    token, in any layer, that changed experts at a near tie (``NEAR_TIE``);
+    a kept mask may differ only after that token."""
+    first = b * s
+    for (ek, kk, gk), (ep, kp, gp) in zip(card, cpu):
+        ek, ep = ek.reshape(b * s, -1), ep.to(ek.device).reshape(b * s, -1)
+        moved = (ek != ep).any(dim=-1)
+        gap = torch.minimum(gk.reshape(-1), gp.to(gk.device).reshape(-1))
+        if bool((gap[moved] >= NEAR_TIE).any()):
+            raise AssertionError("EP f32: a token changed experts between "
+                                 "the card and the CPU without a near tie")
+        kept = (kk.reshape(b * s, -1) != kp.to(kk.device).reshape(
+            b * s, -1)).any(dim=-1)
+        where = torch.nonzero(moved).flatten()
+        f = int(where[0]) if where.numel() else b * s
+        if bool(kept[:f].any()):
+            raise AssertionError("EP f32: kept choices differ before any "
+                                 "token changed experts")
+        first = min(first, f)
+    return torch.arange(b, device=DEVICE) < (first // s)
+
+
+def sharded_train_check(torch, training: dict, card: str, mesh,
+                        tmp: Path) -> dict:
+    """Phase 18 (a): ``TrainLoop(..., mesh=)`` on the one-rank NCCL mesh,
+    as phase 17 (b) runs it with ``"reference"`` attention: its first
+    loss against phase 17's, the step's seconds, peak memory and busy
+    share, and the bytes the rank holds of parameters and moments; then
+    the sharded loss in f32 at 2 layers against the plain ``loss_fn``."""
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import init_params, loss_fn, make_batch
+    from repro_torch.sharding import place, rules
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import mesh_loss
+
+    cfg = train_cfg(attention_impl="reference")
+    loop = TrainLoop(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=tmp,
+                     opt_cfg=OptConfig(**TRAIN_OPT), save_every=10 ** 9,
+                     device=DEVICE, mesh=mesh)
+    fixed = loop.pipeline.batch_at(0)
+    loop.pipeline.batch_at = lambda step: fixed
+    loop.save_now = lambda step: None        # a checkpoint is 16.5 GB
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop.init_or_restore()
+    model, opt = loop.state
+    placed = {p.placements for p in model.parameters()
+              if place.is_dtensor(p)}
+    if len(placed) < 2 or not all(place.is_dtensor(p)
+                                  for p in model.parameters()):
+        raise AssertionError(f"shard (a): parameters not placed: {placed}")
+    held = {"params": place.local_bytes(model.parameters()),
+            "opt": place.local_bytes(list(opt["m"].values())
+                                     + list(opt["v"].values())
+                                     + [opt["step"]])}
+    t0 = time.perf_counter()
+    losses = loop.run(1, log_every=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses += loop.run(SHARD_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (SHARD_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    plain = training["full"]["reference"]
+    rel = abs(losses[0] - plain["losses"][0]) / abs(plain["losses"][0])
+    batch = {"tokens": torch.as_tensor(fixed["tokens"], device=DEVICE)}
+    print(f"profile of one sharded {cfg.name} train step (warm):")
+    _, busy = profiled(torch, lambda: loop.train_step(model, opt, batch))
+    print(f"shard (a): {cfg.name} TrainLoop on a (1, 1) mesh, "
+          f"{len(placed)} placements; losses "
+          f"{[round(x, 4) for x in losses]}; first loss {losses[0]!r} "
+          f"against the unsharded loop's {plain['losses'][0]!r} (phase 17): "
+          f"relative difference {rel:.3e} (tol {SHARD_LOSS_RTOL:g}); warm "
+          f"{step_s:.4f} s a step against phase 17's {plain['step_s']:.4f} "
+          f"s, first step {warm_s:.3f} s; busy share {busy:.4f}; "
+          f"max_memory_allocated {peak} B; held by the rank: parameters "
+          f"{held['params']} B, moments {held['opt']} B [{card}]")
+    if rel > SHARD_LOSS_RTOL:
+        raise AssertionError("shard (a): the sharded first loss differs from "
+                             "the unsharded loop's")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"shard (a): the loss did not fall: {losses}")
+    del loop, model, opt
+    torch.cuda.empty_cache()
+
+    f32 = train_cfg(n_layers=2, dtype="float32", attention_impl="reference")
+    model = init_params(f32, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    batch = make_batch(f32, SHARD_F32_BATCH, SHARD_F32_SEQ, seed=0,
+                       device=DEVICE)
+    with torch.no_grad():
+        want = float(loss_fn(f32, model, batch)[0])
+        place.distribute_model(model, rules.param_specs(
+            f32, param_shapes(f32), mesh), mesh)
+        got = float(mesh_loss(f32, model, batch, mesh))
+    f32_rel = abs(got - want) / abs(want)
+    print(f"shard (a) f32, 2 layers at full width, batch {SHARD_F32_BATCH} x "
+          f"{SHARD_F32_SEQ}: sharded loss {got!r}, plain {want!r}, relative "
+          f"difference {f32_rel:.3e} (tol {SHARD_F32_RTOL:g})")
+    if f32_rel > SHARD_F32_RTOL:
+        raise AssertionError("shard (a) f32: the sharded loss differs")
+    del model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "loss_rel": rel, "step_s": step_s,
+            "phase17_step_s": plain["step_s"], "peak_bytes": peak,
+            "busy_share": busy, "held": held, "f32_loss_rel": f32_rel}
+
+
+def ep_prefill_check(torch, fa_ops, fa_ref, count_tables, families: dict,
+                     card: str, mesh) -> dict:
+    """Phase 18 (b): qwen3-moe-235b-a22b at phase 12's cut with
+    ``moe_shard="ep_infer"`` on the one-rank mesh (the weights placed by
+    the inference specs), served through ``ServingEngine``: every prefill
+    attention on the tensor-core flash kernel, the bf16 logits within phase
+    12's gate, and in f32 at 2 layers the card's EP against the CPU's."""
+    from unittest import mock
+
+    from repro_torch.models import forward, init_params, make_batch, moe
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.sharding import place, rules
+
+    spec = next(s for s in FAMILY_PHASES if s.name == "moe")
+    cfg = family_cfg(spec, moe_shard="ep_infer")
+    moe.set_mesh(mesh)
+    calls = []
+    ep = moe.moe_apply_ep
+    with mock.patch.object(moe, "moe_apply_ep",
+                           lambda *a: calls.append(1) or ep(*a)):
+        model = init_params(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), device=DEVICE)
+        place.distribute_model(model, rules.param_specs(
+            cfg, param_shapes(cfg), mesh, training=False), mesh)
+        prompts = make_batch(cfg, FAMILY_BATCH, spec.seq_len, seed=0,
+                             device=DEVICE)["tokens"].cpu().numpy()
+        engine = ServingEngine(cfg, model, ServeConfig(
+            max_len=spec.seq_len + EP_NEW), device=DEVICE)
+        reset_counts(*count_tables)
+        engine.generate(prompts, EP_NEW)
+        counted = counts_now(fa_ops, fa_ref)
+        cold = engine.stats["prefill_s"]
+        engine.generate(prompts, EP_NEW)
+        warm = engine.stats["prefill_s"] - cold
+    print(f"shard (b) EP path counts (one prefill, {EP_NEW} decode steps): "
+          f"{counted}; moe_apply_ep calls {len(calls)}")
+    if counted["kernel"] != {"flash_attention": spec.launches,
+                             "tensor_core": spec.launches, "tf32x3": 0}:
+        raise AssertionError(f"shard (b): the EP prefill did not launch the "
+                             f"tensor-core flash kernel, and only it, "
+                             f"{spec.launches} times: {counted['kernel']}")
+    if any(counted["plain"].values()):
+        raise AssertionError("shard (b): the EP path ran the plain version")
+    if len(calls) != 2 * cfg.n_layers * (1 + EP_NEW):
+        raise AssertionError(f"shard (b): {len(calls)} EP calls")
+    print(f"shard (b): EP prefill (4 x {spec.seq_len}) {cold:.4f} s cold, "
+          f"{warm:.4f} s warm, against phase 12's non-EP "
+          f"{families['moe']['prefill_s']:.4f} s [{card}]")
+    batch = make_batch(cfg, FAMILY_BATCH, spec.seq_len, seed=0,
+                       device=DEVICE)
+    t0 = time.perf_counter()
+    gate = bf16_logits_gate(torch, fa_ref, cfg, model, batch,
+                            spec.seq_len + EP_NEW, "moe EP", full=True)
+    gate_s = time.perf_counter() - t0
+    del engine, model
+    torch.cuda.empty_cache()
+
+    f32 = family_cfg(spec, moe_shard="ep_infer", n_layers=EP_F32_LAYERS,
+                     dtype="float32")
+    t0 = time.perf_counter()
+    model = init_params(f32, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    batch = make_batch(f32, EP_F32_BATCH, EP_F32_SEQ, seed=0, device=DEVICE)
+    cpu_model = init_params(f32, torch.Generator(), device="meta").to_empty(
+        device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    routes, logits = {}, {}
+    reset_counts(fa_ops.counts)
+    for where, m, b in (("card", model, batch),
+                        ("cpu", cpu_model, {k: v.cpu()
+                                            for k, v in batch.items()})):
+        rec = RoutingRecorder(torch, moe)
+        with mock.patch.object(moe, "moe_route", rec):
+            logits[where] = forward(f32, m, b).to(DEVICE)
+        routes[where] = rec.calls
+    launched = dict(fa_ops.counts)
+    moe.set_mesh(None)
+    clean = ep_clean_rows(torch, routes["card"], routes["cpu"],
+                          EP_F32_BATCH, EP_F32_SEQ)
+    if not bool(clean.any()):
+        raise AssertionError("shard (b) f32: every row was rerouted")
+    diff = float((logits["card"][clean] - logits["cpu"][clean]).abs().max())
+    print(f"shard (b) f32 EP, {EP_F32_LAYERS} layers at full width, "
+          f"{EP_F32_BATCH} x {EP_F32_SEQ}: card against CPU logits max abs "
+          f"diff {diff:.3e} (tol {F32_LOGITS_TOL:g}) over {int(clean.sum())} "
+          f"of {EP_F32_BATCH} rows; {launched['tf32x3']} split-TF32 "
+          f"launches; the bf16 gate took {gate_s:.1f} s, the f32 check "
+          f"{time.perf_counter() - t0:.1f} s")
+    if diff > F32_LOGITS_TOL:
+        raise AssertionError("shard (b) f32: the card's EP differs from the "
+                             "CPU's")
+    del model, cpu_model, logits
+    torch.cuda.empty_cache()
+    return {"launches": counted["kernel"]["tensor_core"], "prefill_s": warm,
+            "cold_prefill_s": cold, "gate": gate,
+            "f32": {"logits_max_abs_diff": diff,
+                    "launches": launched["tf32x3"],
+                    "rows_checked": int(clean.sum())}}
+
+
+def dryrun_start() -> subprocess.Popen:
+    """Phase 18 (c)'s dry-run, started in a process of its own (it starts
+    a fake process group) while (a) and (b) hold the card: ``run_cell`` of
+    (a)'s cell on a (1, 1) mesh, then the production cells of
+    ``DRYRUN_ARCHS``."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN, TRAIN_ARCH, str(TRAIN_BATCH),
+         str(TRAIN_SEQ), "reference", ",".join(DRYRUN_ARCHS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+
+
+def dryrun_check(proc: subprocess.Popen, held: dict, card: str) -> dict:
+    """Phase 18 (c): the dry-run's bytes a rank of parameters and moments
+    equal what (a) held, to the byte; its production cells printed."""
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"shard (c): the dry-run failed: "
+                             f"{stderr[-3000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    mem = out.pop("card")["memory"]
+    print(f"shard (c): run_cell of the card's cell on (1, 1): parameters "
+          f"{mem['param_bytes_per_device']} B, moments "
+          f"{mem['opt_bytes_per_device']} B a rank; the card held "
+          f"{held['params']} B and {held['opt']} B")
+    if (mem["param_bytes_per_device"], mem["opt_bytes_per_device"]) != (
+            held["params"], held["opt"]):
+        raise AssertionError("shard (c): the dry-run's bytes are not the "
+                             "card's")
+    for cell, r in out.items():
+        if r["status"] != "ok":
+            print(f"shard (c) {cell}: {r['status']} "
+                  f"{r.get('reason') or r.get('error')}")
+            continue
+        coll = ("unavailable" if r["collective_s"] is None
+                else f"{r['collective_s']:.4f} s")
+        print(f"shard (c) {cell}: {r['memory']['argument_bytes_per_device']} "
+              f"B of arguments a rank (parameters "
+              f"{r['memory']['param_bytes_per_device']} B); compute "
+              f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+              f"collective {coll}: {r['dominant']} dominates (H100 data "
+              f"sheet rates, not measured)")
+    return {"card_bytes": mem, "cells": out}
+
+
+def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
+                   families: dict, card: str) -> dict:
+    """Phase 18: the sharded paths on a one-rank NCCL group started from a
+    ``FileStore``, over a (1, 1) mesh: (a) the sharded train step, (b) the
+    EP prefill, (c) the dry-run against the card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_from_store, make_local_mesh
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    dry = dryrun_start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+            tmp = Path(tmp)
+            backend = init_from_store(dist.FileStore(str(tmp / "store"), 1),
+                                      0, 1, device=DEVICE)
+            try:
+                mesh = make_local_mesh(1, 1, device=DEVICE)
+                print(f"shard: process group {backend}, mesh {mesh}")
+                t0 = time.perf_counter()
+                out = {"train": sharded_train_check(torch, training, card,
+                                                    mesh, tmp / "ckpt")}
+                seconds["a"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out["ep"] = ep_prefill_check(torch, fa_ops, fa_ref,
+                                             count_tables, families, card,
+                                             mesh)
+                seconds["b"] = time.perf_counter() - t0
+            finally:
+                dist.destroy_process_group()
+        t0 = time.perf_counter()
+        out["dryrun"] = dryrun_check(dry, out["train"]["held"], card)
+        seconds["c, after (a)-(b)"] = time.perf_counter() - t0
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sharding phase: {out['seconds']:.1f} s (" + ", ".join(
         f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
     return out
 
@@ -3041,10 +3424,14 @@ def main(argv=None) -> int:
     # -- phase 17: training stablelm-1.6b --------------------------------
     training = train_phase(torch, fa_ops, fa_ref, count_tables, card)
     phase_s["training"] = training["seconds"]
-    print("phases 9-17 seconds: " + ", ".join(
+    # -- phase 18: sharding and launch on torch.distributed ---------------
+    sharding = sharding_phase(torch, fa_ops, fa_ref, count_tables, training,
+                              families, card)
+    phase_s["sharding"] = sharding["seconds"]
+    print("phases 9-18 seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in phase_s.items()))
 
-    # -- phase 18: the kernels line and the result ------------------------
+    # -- phase 19: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -3108,8 +3495,11 @@ def main(argv=None) -> int:
     # each family's path (zamba2's too) launches the tensor-core kernel;
     # its f32 check the split-TF32 one
     serving = {**families, "hybrid": hybrid}
+    ep = sharding["ep"]
     kernels[-2].update(family_launches={
-        name: fam["launches"] for name, fam in serving.items()}, **{
+        **{name: fam["launches"] for name, fam in serving.items()},
+        "moe_ep": ep["launches"]}, moe_ep_prefill_s=ep["prefill_s"],
+        moe_ep_gate_mean_ratio=ep["gate"]["mean_ratio"], **{
         f"{name}_{key}": fam[key] for name, fam in serving.items()
         for key in ("prefill_s", "tok_s", "peak_bytes")}, **{
         f"{name}_gate_mean_ratio": fam["gate"]["mean_ratio"]
@@ -3128,11 +3518,13 @@ def main(argv=None) -> int:
             "step_s", "tokens_s", "flops", "mfu", "peak_bytes",
             "busy_share")} for impl, r in training["full"].items()})
     kernels[-1].update(
-        f32_family_launches={name: fam["f32"]["launches"]
-                             for name, fam in serving.items()},
+        f32_family_launches={
+            **{name: fam["f32"]["launches"] for name, fam in serving.items()},
+            "moe_ep": ep["f32"]["launches"]},
         f32_family_logits_max_abs_diff={
-            name: fam["f32"]["logits_max_abs_diff"]
-            for name, fam in serving.items()},
+            **{name: fam["f32"]["logits_max_abs_diff"]
+               for name, fam in serving.items()},
+            "moe_ep_card_vs_cpu": ep["f32"]["logits_max_abs_diff"]},
         recurrent_logits_max_abs_diff={
             name: fam["recurrent"]["logits_max_abs_diff"]
             for name, fam in ssm_families.items()},

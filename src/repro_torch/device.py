@@ -18,11 +18,12 @@ __all__ = ["resolve_device"]
 def resolve_device(
     device: Optional[Union[str, torch.device]] = None,
 ) -> torch.device:
-    """``None`` means ``"cuda"``; ``"cpu"`` only when asked for by name."""
+    """``None`` means ``"cuda"``; ``"cpu"`` and ``"meta"`` only when asked
+    for by name."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -1,11 +1,15 @@
 """End-to-end training loop and entry point with fault tolerance.
 
-The port of ``src/repro/launch/train.py`` on one device: it restores the
-newest committed checkpoint if present, then trains with deterministic
-batches (``TokenPipeline``), periodic atomic checkpoints, and
-crash-restart (``--inject-failure-at`` proves the loop recovers).  One
-card, so there is no mesh and no sharding rules: the reference's
-``jax.jit`` with shardings is a plain call of the step.
+The port of ``src/repro/launch/train.py``: it restores the newest
+committed checkpoint if present, then trains with deterministic batches
+(``TokenPipeline``), periodic atomic checkpoints, and crash-restart
+(``--inject-failure-at`` proves the loop recovers).  With no mesh it
+runs on one device; with ``mesh=`` (a ``DeviceMesh`` of the running
+process group, every rank running the loop) the parameters and AdamW
+moments are DTensors placed by ``rules.param_specs`` / ``opt_pspec``,
+the step runs sharded (``training.train_step``), a restore places what
+it loads on the mesh, and a moe config's "ep" policy runs its all-to-all
+over the mesh's ``model`` axis.
 
 On the card, at full width and depth:
 
@@ -33,7 +37,9 @@ import torch
 from ..configs import get_config, reduced
 from ..data import DataConfig, TokenPipeline
 from ..device import resolve_device
-from ..models import init_params
+from ..models import init_params, moe
+from ..models.transformer import param_shapes
+from ..sharding import place, rules
 from ..training.checkpoint import latest_step, restore, save
 from ..training.optimizer import OptConfig, adamw_init
 from ..training.train_step import make_steps
@@ -49,13 +55,21 @@ class TrainLoop:
     def __init__(self, cfg, *, batch: int, seq: int, ckpt_dir,
                  opt_cfg: OptConfig | None = None, save_every: int = 50,
                  microbatches: int = 1, compress_grads: bool = False,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for weights on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.ckpt_dir = Path(ckpt_dir)
         self.save_every = save_every
+        if mesh is not None:
+            self.p_spec = rules.param_specs(cfg, param_shapes(cfg), mesh)
+            self.o_spec = rules.opt_pspec(self.p_spec)
+            moe.set_mesh(mesh)
         self.steps = make_steps(cfg, opt_cfg, microbatches=microbatches,
-                                compress_grads=compress_grads)
+                                compress_grads=compress_grads, mesh=mesh)
         self.train_step = self.steps["train_step"]
         self.pipeline = TokenPipeline(DataConfig(
             batch=batch, seq_len=seq, vocab_size=cfg.vocab_size, seed=seed))
@@ -70,12 +84,19 @@ class TrainLoop:
         model = init_params(
             self.cfg, torch.Generator(device=self.device).manual_seed(seed),
             device=self.device)
+        if self.mesh is not None:
+            place.distribute_model(model, self.p_spec, self.mesh)
         model.requires_grad_(True)
         opt = adamw_init(dict(model.named_parameters()))
         if step is not None:
-            tree = restore(self.ckpt_dir, step,
-                           {"params": model.state_dict(), "opt": opt},
-                           device=self.device)
+            like = {"params": model.state_dict(), "opt": opt}
+            where = {} if self.mesh is None else dict(
+                mesh=self.mesh, placements={
+                    "params": rules.placements(self.mesh, self.p_spec),
+                    "opt": {k: rules.placements(self.mesh, self.o_spec[k])
+                            for k in ("m", "v")} | {"step": None}})
+            tree = restore(self.ckpt_dir, step, like, device=self.device,
+                           **where)
             model.load_state_dict(tree["params"])
             opt = tree["opt"]
             self.start_step = step

@@ -5,13 +5,14 @@ flash-attention kernels.
 
 The port of ``src/repro/models``.  ``forward`` and ``loss_fn`` are
 differentiable (blocked attention has its hand-written backward; every
-block recomputes its activations under ``cfg.remat == "full"``); the
-expert-parallel ``shard_map`` path and the dry-run's shape specs (ROADMAP
-Queue 1 item 6) are not ported yet.
+block recomputes its activations under ``cfg.remat == "full"``).  The
+expert-parallel all-to-all path is ``moe.moe_apply_ep`` (a mesh set with
+``moe.set_mesh``); ``param_shapes`` and the ``io`` specs give the
+dry-run its shapes on the meta device.
 """
 
 from .convert import opt_from_jax, params_from_jax
-from .io import make_batch, text_len
+from .io import batch_specs, cache_specs, input_specs, make_batch, text_len
 from .moe import moe_apply, moe_capacity, moe_init
 from .transformer import (
     XLSTMLM,
@@ -24,12 +25,14 @@ from .transformer import (
     init_cache,
     init_params,
     loss_fn,
+    param_shapes,
     prefill,
 )
 
 __all__ = [
-    "XLSTMLM", "DenseLM", "EncDecLM", "ZambaLM", "decode_step",
-    "fill_cache", "forward", "init_cache", "init_params", "loss_fn",
-    "make_batch", "moe_apply", "moe_capacity", "moe_init", "opt_from_jax",
+    "XLSTMLM", "DenseLM", "EncDecLM", "ZambaLM", "batch_specs",
+    "cache_specs", "decode_step", "fill_cache", "forward", "init_cache",
+    "init_params", "input_specs", "loss_fn", "make_batch", "moe_apply",
+    "moe_capacity", "moe_init", "opt_from_jax", "param_shapes",
     "params_from_jax", "prefill", "text_len",
 ]

@@ -1,9 +1,12 @@
-"""Batch construction for the examples and tests.
+"""Batch construction: real tensors for the examples and tests, and
+shape-and-dtype records (``input_specs``) for the dry-run.
 
-The port of ``make_batch`` and ``text_len`` of ``src/repro/models/io.py``:
-the same numpy draws from ``default_rng(seed)``, so one seed gives the
-same tokens in both packages.  The reference's ShapeDtypeStruct specs
-serve its dry-run only and are not ported yet.
+The port of ``src/repro/models/io.py``: ``make_batch`` makes the same
+numpy draws from ``default_rng(seed)``, so one seed gives the same tokens
+in both packages; ``batch_specs``, ``cache_specs`` and ``input_specs``
+return :class:`~repro_torch.models.transformer.TensorSpec` records where
+the reference returns ``jax.ShapeDtypeStruct``s, the cache's from
+``init_cache`` on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -12,8 +15,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import transformer
+from .transformer import TensorSpec
 
-__all__ = ["make_batch", "text_len"]
+__all__ = ["make_batch", "text_len", "input_specs", "batch_specs",
+           "cache_specs"]
+
+
+def _emb_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def text_len(cfg, seq_len: int) -> int:
@@ -30,7 +40,7 @@ def make_batch(cfg, batch: int, seq_len: int, seed: int = 0,
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     s = text_len(cfg, seq_len)
-    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    dtype = _emb_dtype(cfg)
     out = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(batch, s)), dtype=torch.int32,
         device=dev)}
@@ -43,3 +53,37 @@ def make_batch(cfg, batch: int, seq_len: int, seed: int = 0,
             rng.standard_normal((batch, cfg.n_patches, cfg.d_model)),
             device=dev).to(dtype)
     return out
+
+
+def batch_specs(cfg, shape) -> dict:
+    """TensorSpecs for the train/prefill inputs of one shape cell."""
+    b = shape.global_batch
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((b, 1), torch.int32)}
+    s = text_len(cfg, shape.seq_len)
+    out = {"tokens": TensorSpec((b, s), torch.int32)}
+    if cfg.family == "audio":
+        out["frames"] = TensorSpec((b, cfg.encoder_seq, cfg.d_model),
+                                   _emb_dtype(cfg))
+    if cfg.family == "vlm":
+        out["patches"] = TensorSpec((b, cfg.n_patches, cfg.d_model),
+                                    _emb_dtype(cfg))
+    return out
+
+
+def cache_specs(cfg, shape) -> dict:
+    """Decode-cell cache stand-ins: a cache of seq_len positions, with
+    the reference's keys (``pos`` a 0-d int32)."""
+    cache = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                   device="meta")
+    return {k: (TensorSpec((), torch.int32) if k == "pos"
+                else TensorSpec(tuple(v.shape), v.dtype))
+            for k, v in cache.items()}
+
+
+def input_specs(cfg, shape) -> dict:
+    """Everything the step consumes, minus params and optimizer."""
+    specs = {"batch": batch_specs(cfg, shape)}
+    if shape.kind == "decode":
+        specs["cache"] = cache_specs(cfg, shape)
+    return specs

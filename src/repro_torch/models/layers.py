@@ -19,14 +19,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import place
+
 __all__ = [
-    "Params", "dense_init", "embed_init", "norm_apply", "norm_init", "rope",
+    "Params", "dense_init", "embed_init", "init_device", "norm_apply", "norm_init", "rope",
     "swiglu_mlp", "mlp_init", "gelu_mlp",
 ]
 
 
 class Params(nn.Module):
-    """A named group of weights (no ``forward``): ``p["w"]`` is ``p.w``.
+    """A named group of weights (no ``forward``): ``p["w"]`` is ``p.w``
+    (gathered to a full local tensor where it is a DTensor).
     A value that is itself a module (a norm's ``Params`` inside a block)
     is kept as a submodule.
 
@@ -44,7 +47,17 @@ class Params(nn.Module):
                     name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
-        return getattr(self, name)
+        # a DTensor weight is gathered whole at its use (sharding.place)
+        return place.local(getattr(self, name))
+
+
+def init_device(generator: torch.Generator) -> torch.device:
+    """Where an initializer makes its tensor: the generator's device, or
+    the ``meta`` device inside ``with torch.device("meta")``, where a
+    model is built for its shapes alone (a CPU generator, no storage)."""
+    if torch.get_default_device().type == "meta":
+        return torch.device("meta")
+    return generator.device
 
 
 def dense_init(generator: torch.Generator, shape,
@@ -55,14 +68,16 @@ def dense_init(generator: torch.Generator, shape,
     ``fan_in ** -0.5``); drawn in f32 on the generator's device, then
     cast."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    w = torch.empty(shape, dtype=torch.float32,
+                    device=init_device(generator))
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return w.mul_(fan_in ** -0.5 if scale is None else scale).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape,
                dtype=torch.float32) -> torch.Tensor:
-    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    w = torch.empty(shape, dtype=torch.float32,
+                    device=init_device(generator))
     nn.init.normal_(w, 0.0, 1.0, generator=generator)
     return w.mul_(0.02).to(dtype)
 

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, dense_init, norm_apply, norm_init
+from .layers import Params, dense_init, init_device, norm_apply, norm_init
 
 __all__ = [
     "MLSTMBlock", "SLSTMBlock", "Mamba2Block",
@@ -144,7 +144,7 @@ def mlstm_init(generator: torch.Generator, cfg, dtype) -> MLSTMBlock:
     d = cfg.d_model
     di = 2 * d
     h = cfg.n_heads
-    dev = generator.device
+    dev = init_device(generator)
     f32 = torch.float32
     return MLSTMBlock(
         ln=norm_init(d, cfg.norm, f32, device=dev),
@@ -226,7 +226,7 @@ def slstm_init(generator: torch.Generator, cfg, dtype) -> SLSTMBlock:
     d = cfg.d_model
     h = cfg.n_heads
     dh = d // h
-    dev = generator.device
+    dev = init_device(generator)
     f32 = torch.float32
     return SLSTMBlock(
         ln=norm_init(d, cfg.norm, f32, device=dev),
@@ -299,7 +299,7 @@ def mamba2_init(generator: torch.Generator, cfg, dtype) -> Mamba2Block:
     di = 2 * d
     n = cfg.ssm_state
     h = cfg.n_heads
-    dev = generator.device
+    dev = init_device(generator)
     f32 = torch.float32
     return Mamba2Block(
         ln=norm_init(d, cfg.norm, f32, device=dev),

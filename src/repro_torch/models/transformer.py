@@ -18,6 +18,7 @@ its activations are recomputed in the backward; the serving functions
 
 Public API:
   init_params(cfg, generator, device=None)  -> model
+  param_shapes(cfg)                         -> {name: TensorSpec}
   forward(cfg, model, batch, last_only=)    -> logits
   loss_fn(cfg, model, batch)                -> (loss, metrics)
   init_cache(cfg, batch, max_len, device=)  -> decode cache
@@ -55,13 +56,14 @@ reference unembeds every position and keeps the last, the same values.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding.place import local
 from .attention import (
     _reference_attention, _split_heads, attention, attn_init,
     decode_attention, init_layer_cache,
@@ -75,7 +77,8 @@ from .moe import moe_apply, moe_init
 
 __all__ = [
     "DecoderBlock", "DenseBlock", "DenseLM", "EncDecLM", "EncoderBlock",
-    "XLSTMLM", "ZambaLM", "init_params", "forward", "loss_fn",
+    "TensorSpec", "XLSTMLM", "ZambaLM", "init_params", "param_shapes",
+    "forward", "loss_fn",
     "init_cache", "fill_cache", "prefill", "decode_step",
 ]
 
@@ -263,7 +266,7 @@ def init_params(cfg, generator: torch.Generator, device=None):
     them out (norm weights, the router and the SSM gates f32, the rest in
     ``cfg.dtype``)."""
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
+    if dev.type != "meta" and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, weights on {dev}")
     dtype = _dt(cfg)
     with torch.device(dev):
@@ -289,11 +292,40 @@ def init_params(cfg, generator: torch.Generator, device=None):
     return DenseLM(embed, layers, final_norm, lm_head)
 
 
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, with no storage (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+
+def param_shapes(cfg) -> dict:
+    """``{name: TensorSpec}`` of the model's parameters, in
+    ``named_parameters`` order: the model built on the ``meta`` device,
+    so a full-size config allocates nothing (the reference's
+    ``jax.eval_shape`` of ``init_params``)."""
+    model = init_params(cfg, torch.Generator(), device="meta")
+    return {name: TensorSpec(tuple(t.shape), t.dtype)
+            for name, t in model.named_parameters()}
+
+
 def _embed_inputs(cfg, model: DenseLM, batch: dict):
     """Token embedding, after the patch prefix for vlm; positions over
     the whole length."""
     tokens = batch["tokens"].to(model.device)
-    x = model.embed[tokens].to(_dt(cfg))
+    x = local(model.embed)[tokens].to(_dt(cfg))
     if cfg.family == "vlm":
         patches = batch["patches"].to(model.device, _dt(cfg))
         x = torch.cat([patches, x], dim=1)
@@ -332,7 +364,8 @@ def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
 
 def _unembed(cfg, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
     x = norm_apply(model.final_norm, x, cfg.norm)
-    head = model.embed.T if model.lm_head is None else model.lm_head
+    head = (local(model.embed).T if model.lm_head is None
+            else local(model.lm_head))
     return x @ head
 
 
@@ -381,7 +414,7 @@ def _whisper_decode_full(cfg, model: EncDecLM, tokens: torch.Tensor,
     """Causal self-attention, then non-causal cross-attention on
     ``enc_out``, then the GELU MLP, in each decoder block."""
     dt = _dt(cfg)
-    x = model.embed[tokens.to(model.device)].to(dt)
+    x = local(model.embed)[tokens.to(model.device)].to(dt)
     x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(dt)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -427,12 +460,35 @@ def forward(cfg, model, batch: dict, *,
         if last_only:
             x = x[:, -1:, :]
         x = norm_apply(model.final_norm, x, cfg.norm)
-        return x @ model.embed.T          # whisper ties embeddings
+        return x @ local(model.embed).T   # whisper ties embeddings
     x, positions = _embed_inputs(cfg, model, batch)
     x = _backbone_full(cfg, model, x, positions)
     if last_only:
         x = x[:, -1:, :]
     return _unembed(cfg, model, x)
+
+
+def _act_constraint(cfg, x):
+    """Sequence-parallel residual stream (``act_shard="seq_model"``): a
+    DTensor residual is redistributed to ``Shard(1)`` on the ``model``
+    mesh axis when the token dim divides it, as the reference's
+    ``with_sharding_constraint``.  The identity on a plain tensor: the
+    port's sharded step keeps the residual as each rank's local rows
+    (:mod:`repro_torch.sharding.place`)."""
+    if cfg.act_shard != "seq_model" or x.ndim != 3 or x.shape[1] <= 1:
+        return x
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names or x.shape[1] % mesh.size(
+            names.index("model")):
+        return x
+    placements = list(x.placements)
+    placements[names.index("model")] = Shard(1)
+    return x.redistribute(mesh, placements)
 
 
 def _backbone_full(cfg, model, x: torch.Tensor,
@@ -465,8 +521,9 @@ def _backbone_full(cfg, model, x: torch.Tensor,
         return _dense_block(cfg, p, x, positions)[0]
 
     for p in model.layers:
+        x = _act_constraint(cfg, x)
         x = _remat(cfg, p, functools.partial(block, p), x)
-    return x
+    return _act_constraint(cfg, x)
 
 
 def loss_fn(cfg, model, batch: dict):
@@ -565,7 +622,7 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), cache)."""
     pos = cache["pos"]
     dt = _dt(cfg)
-    x = model.embed[tokens.to(model.device)].to(dt)
+    x = local(model.embed)[tokens.to(model.device)].to(dt)
     if cfg.family == "ssm":
         x = _xlstm_decode(cfg, model, cache, x)
         cache["pos"] = pos + 1
@@ -588,7 +645,7 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
             x = x + gelu_mlp(p.mlp, h)
         x = norm_apply(model.final_norm, x, cfg.norm)
         cache["pos"] = pos + 1
-        return x @ model.embed.T, cache
+        return x @ local(model.embed).T, cache
     for i, p in enumerate(model.layers):
         h = norm_apply(p.ln1, x, cfg.norm)
         a, _, _ = decode_attention(p.attn, cfg, h, cache["k"][i],

@@ -1,6 +1,6 @@
-"""Training substrate: optimizer, step functions, compression,
-checkpointing.  The port of ``src/repro/training`` (its GPipe schedule,
-``pipeline.py``, waits for the sharding slice: ROADMAP Queue 1 item 6)."""
+"""Training substrate: optimizer, step functions (one device or a
+mesh), compression, checkpointing with the elastic restore, and the
+GPipe schedule (``pipeline.py``).  The port of ``src/repro/training``."""
 from .optimizer import OptConfig, adamw_init, adamw_update, lr_at
 from .train_step import make_steps
 

@@ -14,9 +14,15 @@ dots (``params.layers.0.attn.wq``, ``opt.m.embed``, ``opt.step``).  bf16
 has no numpy dtype, so it is stored as its raw 16-bit words beside its
 dtype tag.  Fault tolerance: ``latest_step`` only considers committed
 checkpoints, so a job killed mid-save restarts from the previous one.
-``restore(..., device=)`` places the arrays on one device, where the
-reference's ``shardings`` re-place them on a mesh; elastic resharding
-waits for the sharding slice (ROADMAP Queue 1 item 6).
+
+Sharded trees: ``save`` gathers a DTensor leaf whole on every rank (a
+collective: every rank of the mesh calls it) and only rank 0 of the
+process group writes; the others wait for the commit.  ``restore(...,
+mesh=, placements=)`` places each loaded array as a DTensor by its entry
+of ``placements`` (a tree matching ``like_tree``; ``None`` keeps a leaf
+plain), which may be another layout, on another mesh, than the one that
+saved it: the elastic restart of the reference's ``shardings=``.
+``restore(..., device=)`` places the arrays on one device.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..sharding.place import is_dtensor
 
 __all__ = ["save", "restore", "latest_step", "list_steps"]
 
@@ -72,10 +81,15 @@ def save(ckpt_dir, step: int, tree: dict, *, keep: int = 3,
     names, leaves = _flatten_with_names(tree)
     arrays = []
     for leaf in leaves:
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         x = leaf.detach().cpu()
         # bf16 has no numpy dtype -> store raw bits + dtype tag
         arrays.append(x.view(torch.int16).numpy().view(np.uint16)
                       if x.dtype == torch.bfloat16 else x.numpy())
+    if dist.is_initialized() and dist.get_rank() != 0:
+        dist.barrier()                       # rank 0 commits
+        return final
     manifest = {
         "step": step,
         "names": names,
@@ -96,6 +110,8 @@ def save(ckpt_dir, step: int, tree: dict, *, keep: int = 3,
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)
     _retain(ckpt_dir, keep)
+    if dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -121,11 +137,15 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir, step: int, like_tree: dict, *, device=None) -> dict:
+def restore(ckpt_dir, step: int, like_tree: dict, *, device=None,
+            mesh=None, placements: Optional[dict] = None) -> dict:
     """Load a checkpoint into the structure of ``like_tree`` (its leaves
     give the names; the dtypes and shapes are the checkpoint's).  Each
     array goes to ``device``, or, where that is None, to the device of
-    the leaf of ``like_tree`` it replaces."""
+    the leaf of ``like_tree`` it replaces; with ``mesh`` and
+    ``placements`` (a tree matching ``like_tree`` of DTensor placement
+    tuples, or None for a leaf that stays plain) it is placed as a
+    DTensor on ``mesh`` (every rank of the mesh calls this)."""
     path = Path(ckpt_dir) / f"step_{step:09d}"
     if not (path / _COMMIT).exists():
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -135,11 +155,33 @@ def restore(ckpt_dir, step: int, like_tree: dict, *, device=None) -> dict:
         raise ValueError(
             "checkpoint tree mismatch:\n"
             f"  want {names[:5]}...\n  have {manifest['names'][:5]}...")
+    if (mesh is None) != (placements is None):
+        raise ValueError("mesh and placements go together")
+    where = (_flatten_with_names(placements)[1] if placements is not None
+             else [None] * len(leaves))
+    if len(where) != len(leaves):
+        raise ValueError("placements do not match the tree")
     out = []
     with np.load(path / "arrays.npz") as data:
-        for i, (leaf, dt) in enumerate(zip(leaves, manifest["dtypes"])):
+        for i, (leaf, dt, pl) in enumerate(
+                zip(leaves, manifest["dtypes"], where)):
             arr = data[f"a{i}"]
             x = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                  if dt == "bfloat16" else torch.from_numpy(arr))
-            out.append(x.to(leaf.device if device is None else device))
+            if pl is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                x = distribute_tensor(x.to(_mesh_device(mesh)), mesh,
+                                      list(pl))
+            else:
+                x = x.to(device if device is not None else
+                         leaf.to_local().device if is_dtensor(leaf)
+                         else leaf.device)
+            out.append(x)
     return _unflatten_like(like_tree, out)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

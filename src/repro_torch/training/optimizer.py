@@ -8,7 +8,10 @@ the reference's mixed-precision recipe.  The reference returns new
 arrays and its trainer donates the old ones to ``jax.jit``; here
 :func:`adamw_update` writes the parameters and moments in place and
 returns them.  The step counter, the learning rate and the norm stay on
-the device: an update makes no host synchronisation.
+the device: an update makes no host synchronisation.  Parameters placed
+as DTensors (``repro_torch.sharding.place``) get moments of the same
+placement, and the update runs on each rank's shards; the global norm
+sums the shards' squares across the mesh.
 """
 
 from __future__ import annotations
@@ -35,12 +38,15 @@ class OptConfig:
 
 
 def adamw_init(params: dict) -> dict:
-    """f32 zero moments beside each parameter, and a 0-d int32 step."""
+    """f32 zero moments beside each parameter (a DTensor's placed as it
+    is), and a 0-d int32 step."""
     device = next(iter(params.values())).device if params else None
     return {
-        "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "m": {n: torch.zeros_like(p, dtype=torch.float32,
+                                  memory_format=torch.contiguous_format)
               for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "v": {n: torch.zeros_like(p, dtype=torch.float32,
+                                  memory_format=torch.contiguous_format)
               for n, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }

@@ -9,6 +9,13 @@ axis 0 whose gradients are accumulated in f32 and averaged, as the
 reference's.  Optional int8 gradient compression quantizes the
 gradients in blocks before the update (see ``training/compression.py``),
 over the reference's layer-stacked leaves (:func:`_compress_round_trip`).
+
+With ``mesh=`` the step is the reference's sharded ``jax.jit``: the
+model's parameters are DTensors (``sharding.place.distribute_model``),
+each rank takes its rows of the batch by ``rules.batch_specs_pspec``'s
+rule (dim 0 over the data axes where it divides them), each weight is
+gathered whole at its use and its gradient reduce-scattered onto its
+placement, and the loss is the mean over the global batch.
 """
 
 from __future__ import annotations
@@ -19,10 +26,12 @@ import torch
 
 from ..models import decode_step as model_decode
 from ..models import forward, loss_fn
+from ..sharding import place
+from ..sharding.rules import axis_sizes
 from .compression import compress_tree, decompress_tree
 from .optimizer import OptConfig, adamw_init, adamw_update
 
-__all__ = ["make_steps", "TrainStepConfig"]
+__all__ = ["batch_rows", "make_steps", "mesh_loss", "TrainStepConfig"]
 
 
 def _compress_round_trip(grads: dict) -> dict:
@@ -48,30 +57,88 @@ def _compress_round_trip(grads: dict) -> dict:
     return {n: out[n] for n in grads}
 
 
+def batch_rows(mesh, batch: dict, axes: tuple | None = None):
+    """(the mesh axes the batch rows are split over, each tensor's rows
+    on this rank): dim 0 over ``axes`` (default ('pod', 'data'), those
+    the mesh has) where every tensor's divides them, as
+    ``rules.batch_specs_pspec`` places the batch (``all_axes``: every
+    axis)."""
+    sizes = axis_sizes(mesh)
+    if axes is None:
+        axes = tuple(a for a in ("pod", "data") if a in sizes)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    if any(v.shape[0] % n for v in batch.values()):
+        return (), batch
+    return axes, {k: place.local_rows(v, mesh, (axes,))
+                  for k, v in batch.items()}
+
+
+def mesh_loss(cfg, model, batch: dict, mesh=None, *,
+              with_local: bool = False, axes: tuple | None = None):
+    """The mean loss over the global ``batch`` (the same on every rank)
+    of a model placed on ``mesh`` (plain ``loss_fn`` where it is None),
+    its rows split over ``axes`` as :func:`batch_rows` splits them.
+    Each rank runs its rows; with ``with_local`` also returns this
+    rank's share (its rows' mean over the number of row blocks), whose
+    gradients, summed over the ranks by the placed weights' backward,
+    are the global loss's."""
+    axes, rows = (((), batch) if mesh is None
+                  else batch_rows(mesh, batch, axes))
+    with place.batch_axes(axes):
+        loss, _ = loss_fn(cfg, model, rows)
+    n_shards = 1
+    for a in axes:
+        n_shards *= axis_sizes(mesh)[a]
+    share = loss / n_shards
+    if mesh is not None and axes:
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        total = DTensor.from_local(
+            share.detach(), mesh,
+            [Partial() if name in axes else Replicate()
+             for name in mesh.mesh_dim_names]).full_tensor()
+    else:
+        total = loss
+    return (total, share) if with_local else total
+
+
 def make_steps(cfg, opt_cfg: Optional[OptConfig] = None, *,
-               microbatches: int = 1, compress_grads: bool = False) -> dict:
+               microbatches: int = 1, compress_grads: bool = False,
+               mesh=None) -> dict:
     """Returns a dict of ``train_step(model, opt, batch) -> (model, opt,
     metrics)`` (the weights switched to ``requires_grad`` and updated in
     place), ``prefill_step(model, batch)``, ``decode_step(model, cache,
-    tokens)`` and ``init_opt(model)``."""
+    tokens)`` and ``init_opt(model)``.  With ``mesh``, ``train_step``
+    takes a model placed on it and the global batch (every rank the
+    same), and runs sharded."""
     opt_cfg = opt_cfg or OptConfig()
+    if mesh is not None and compress_grads:
+        raise NotImplementedError(
+            "gradient compression of a sharded step is not ported")
 
     def grads_of(params: dict, model, batch: dict):
-        loss, metrics = loss_fn(cfg, model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
+        """(the global batch's mean loss, metrics, gradients)."""
+        axes = () if mesh is None else batch_rows(mesh, batch)[0]
+        # the backward recomputes remat blocks: it gathers in this context
+        with place.batch_axes(axes):
+            loss, share = mesh_loss(cfg, model, batch, mesh,
+                                    with_local=True)
+            grads = torch.autograd.grad(share, list(params.values()),
+                                        allow_unused=True)
         # a weight the loss does not reach gets zeros, as jax.grad gives
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
-        return loss.detach(), metrics, grads
+        loss = loss.detach()
+        return loss, {"loss": loss, "perplexity": torch.exp(loss)}, grads
 
     def train_step(model, opt: dict, batch: dict):
         model.requires_grad_(True)
         params = dict(model.named_parameters())
         if microbatches > 1:
             mb = next(iter(batch.values())).shape[0] // microbatches
-            acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            acc = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(microbatches):
@@ -87,10 +154,12 @@ def make_steps(cfg, opt_cfg: Optional[OptConfig] = None, *,
             metrics = {"loss": loss, "perplexity": torch.exp(loss)}
         else:
             _, metrics, grads = grads_of(params, model, batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
         if compress_grads:
             grads = _compress_round_trip(grads)
         _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, opt)
+        if mesh is not None:
+            opt_metrics = {k: v.full_tensor() if place.is_dtensor(v) else v
+                           for k, v in opt_metrics.items()}
         return model, opt, {**metrics, **opt_metrics}
 
     @torch.no_grad()

@@ -685,3 +685,99 @@ def test_checkpoint_restores_to_the_card(card, tmp_path):
             assert got.device.type == dev and got.dtype == want.dtype
             assert torch.equal(chip_smoke.tensor_bits(torch, got.cpu()),
                                chip_smoke.tensor_bits(torch, want.cpu()))
+
+
+# -- sharding on torch.distributed: a one-rank NCCL group -------------------
+
+_NCCL = r'''
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from repro_torch import configs
+from repro_torch.launch.mesh import init_from_store, make_local_mesh
+from repro_torch.launch.train import TrainLoop
+from repro_torch.models import init_params, loss_fn, make_batch, moe
+from repro_torch.models.layers import Params
+from repro_torch.models.transformer import param_shapes
+from repro_torch.sharding import place, rules
+from repro_torch.training.train_step import mesh_loss
+
+torch.backends.cuda.matmul.allow_tf32 = False
+tmp = sys.argv[1]
+out = {"backend": init_from_store(dist.FileStore(tmp + "/store", 1), 0, 1,
+                                  device="cuda")}
+mesh = make_local_mesh(1, 1, device="cuda")
+out["mesh"] = mesh.device_type
+cfg = configs.reduced(configs.get_config("codeqwen1.5-7b"))
+model = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+batch = make_batch(cfg, 4, 16, seed=0, device="cuda")
+with torch.no_grad():
+    plain = float(loss_fn(cfg, model, batch)[0])
+    place.distribute_model(model, rules.param_specs(
+        cfg, param_shapes(cfg), mesh), mesh)
+    out["loss"] = [plain, float(mesh_loss(cfg, model, batch, mesh))]
+tcfg = configs.reduced(configs.get_config("stablelm-1.6b"))
+runs = {}
+for name, m in (("plain", None), ("mesh", mesh)):
+    loop = TrainLoop(tcfg, batch=4, seq=16, ckpt_dir=f"{tmp}/{name}",
+                     device="cuda", mesh=m)
+    loop.init_or_restore()
+    runs[name] = loop.run(3, log_every=100)
+out["train"] = runs
+
+mcfg = configs.reduced(configs.get_config("qwen3-moe-235b-a22b"),
+                       moe_shard="ep")
+p = init_params(mcfg, torch.Generator("cuda").manual_seed(1),
+                "cuda").layers[0].moe
+x = torch.randn((4, 16, mcfg.d_model), generator=torch.Generator(
+    "cuda").manual_seed(2), device="cuda")
+moe.set_mesh(mesh)
+cpu = moe.moe_apply(Params(**{k: v.detach().cpu() for k, v in
+                              p.named_parameters()}), mcfg, x.cpu())
+place.distribute_model(p, {k: rules.param_specs(
+    mcfg, {f"layers.0.moe.{k}": v}, mesh)[f"layers.0.moe.{k}"]
+    for k, v in p.named_parameters()}, mesh)
+card = moe.moe_apply(p, mcfg, x)
+out["ep_err"] = float((card.cpu() - cpu).abs().max())
+out["ep_device"] = card.device.type
+dist.destroy_process_group()
+print(json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def nccl_run(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tmp = tmp_path_factory.mktemp("nccl")
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", _NCCL, str(tmp)], capture_output=True,
+        text=True, timeout=600, check=False,
+        env=dict(os.environ, PYTHONPATH=str(repo / "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_one_rank_nccl_mesh_runs_the_sharded_step(nccl_run):
+    """A cuda mesh runs on NCCL; the sharded loss equals the plain one
+    within 1e-6 relative (f32), and ``TrainLoop(mesh=)`` trains to the
+    unsharded loop's losses within 1e-5 relative."""
+    assert nccl_run["backend"] == "nccl" and nccl_run["mesh"] == "cuda"
+    plain, sharded = nccl_run["loss"]
+    assert abs(sharded - plain) <= 1e-6 * abs(plain)
+    np.testing.assert_allclose(nccl_run["train"]["mesh"],
+                               nccl_run["train"]["plain"], rtol=1e-5)
+
+
+def test_expert_parallel_on_the_card_equals_the_cpu(nccl_run):
+    """``moe_apply_ep`` on the card (weights placed on the NCCL mesh)
+    against the same function on the CPU, f32, within 1e-5."""
+    assert nccl_run["ep_device"] == "cuda"
+    assert nccl_run["ep_err"] < 1e-5

@@ -34,6 +34,11 @@ import repro_torch.launch.serve, repro_torch.launch.train
 import repro_torch.models.blocked_attention
 import repro_torch.training, repro_torch.training.checkpoint
 import repro_torch.training.compression, repro_torch.data
+import repro_torch.sharding, repro_torch.sharding.rules
+import repro_torch.sharding.place, repro_torch.training.pipeline
+import repro_torch.launch.mesh, repro_torch.launch.estimate
+import repro_torch.launch.roofline, repro_torch.launch.dryrun
+import repro_torch.launch.report
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
 """
@@ -91,4 +96,9 @@ def test_scan_covers_the_port():
             port + "training/compression.py",
             port + "training/train_step.py",
             port + "training/checkpoint.py", port + "data/__init__.py",
-            port + "data/pipeline.py", port + "launch/train.py"} <= rel
+            port + "data/pipeline.py", port + "launch/train.py",
+            port + "sharding/__init__.py", port + "sharding/rules.py",
+            port + "sharding/place.py", port + "training/pipeline.py",
+            port + "launch/mesh.py", port + "launch/estimate.py",
+            port + "launch/roofline.py", port + "launch/dryrun.py",
+            port + "launch/report.py"} <= rel

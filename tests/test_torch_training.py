@@ -443,13 +443,20 @@ def test_train_step_matches_jax(microbatches, compress_grads):
     assert off <= NEAR_TIE_SHARE * total, (off, total)
 
 
-def test_compression_blocks_as_the_reference_stacks():
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_compression_blocks_as_the_reference_stacks(arch):
     """The reference compresses its layer-stacked leaves, so at the tiny
     widths a 256-element block straddles layers: the train step's round
-    trip gives the reference's values exactly on the same gradients."""
+    trip gives the reference's values exactly on the same gradients, for
+    every family's stacks (zamba2's two stack axes, the moe experts,
+    whisper's encoder and decoder)."""
     from repro_torch.training.train_step import _compress_round_trip
 
-    jcfg, tcfg = tiny_cfgs()
+    if arch == "stablelm-1.6b":
+        jcfg, tcfg = tiny_cfgs()
+    else:
+        jcfg, tcfg = (jax_configs.reduced(jax_configs.get_config(arch)),
+                      configs.reduced(configs.get_config(arch)))
     params = jax_tf.init_params(jcfg, jax.random.key(6))
     grads = random_grads(jcfg, params, 7)
     want = named(tcfg, jax_comp.decompress_tree(
