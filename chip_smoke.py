@@ -157,7 +157,23 @@ Phases, in order; any failure exits non-zero and none is caught:
    ``F32_LOGITS_TOL``; (c) ``launch.dryrun.run_cell`` (in a process of its
    own) gives the bytes (a) held of parameters and moments, to the byte,
    then prints the production cells of stablelm-1.6b and qwen3-moe.
-19. One JSON line describing each ported kernel, then the result line.
+   (a) and (b) run the whole-weight path (every weight gathered whole at
+   its use).
+19. The ``model`` axis computing (tensor parallelism, ``sharding.tp``), on
+   a one-rank NCCL group over a (1, 1) mesh: (a) phase 18 (a)'s
+   ``TrainLoop(..., mesh=)`` tensor-parallel, its first loss within 1e-4
+   relative of phase 17's and in f32 at 2 layers within 1e-6 of
+   ``loss_fn``'s, its step beside phases 17 and 18's; (b) codeqwen1.5-7b
+   at full width in bf16, placed by the inference specs, phase 6's
+   requests through ``ServingEngine`` (the cache placed by
+   ``cache_pspec``): 96 tensor-core flash launches and nothing else, phase
+   7's bf16 gate, and in f32 at 2 layers phase 7's greedy tokens and its
+   logits within ``F32_LOGITS_TOL``; (c) phase 18 (b) with
+   ``act_shard="seq_model"`` (the EP under sequence parallelism), its
+   gates; (d) the dry-run's collective bytes of stablelm-1.6b
+   ``train_4k`` and codeqwen1.5-7b ``prefill_32k`` on pod16x16,
+   tensor-parallel beside the whole-weight path, printed.
+20. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -594,7 +610,10 @@ def profiled(torch, fn: Callable[[], object]) -> tuple[dict, float]:
             wall_us = (time.perf_counter() - t0) * 1e6
         by_kernel: dict = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # NCCL's "nccl:<op>" ranges sit on the device's timeline over
+            # its kernels: counted, they would count those kernels twice
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                    "nccl:"):
                 t, n = by_kernel.get(e.name, (0.0, 0))
                 by_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
         if by_kernel:
@@ -1181,11 +1200,12 @@ def serve_against_plain(torch, fa_ref, srv: dict) -> None:
           f"throughout")
 
 
-def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> int:
+def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> dict:
     """Phase 7, f32 part: full width cut to F32_LAYERS layers; every
     greedy token equal between kernel and plain paths.  Returns the
     launches of the split-TF32 flash kernel, the route of f32, on the
-    kernel path."""
+    kernel path, and that path's greedy tokens and last-position prefill
+    logits."""
     from repro_torch import configs
     from repro_torch.models import init_params, prefill
     from repro_torch.serving import ServeConfig, ServingEngine
@@ -1218,7 +1238,8 @@ def f32_greedy_check(torch, fa_ops, prompts: np.ndarray) -> int:
     if same != outs["pallas"].size:
         raise AssertionError("f32 greedy tokens differ between the kernel "
                              "and plain paths")
-    return launched["tf32x3"]
+    return {"launches": launched["tf32x3"], "tokens": outs["pallas"],
+            "logits": logits["pallas"]}
 
 
 def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
@@ -2736,7 +2757,7 @@ def ep_clean_rows(torch, card: list, cpu: list, b: int, s: int):
 
 
 def sharded_train_check(torch, training: dict, card: str, mesh,
-                        tmp: Path) -> dict:
+                        tmp: Path, label: str = "shard (a)") -> dict:
     """Phase 18 (a): ``TrainLoop(..., mesh=)`` on the one-rank NCCL mesh,
     as phase 17 (b) runs it with ``"reference"`` attention: its first
     loss against phase 17's, the step's seconds, peak memory and busy
@@ -2764,7 +2785,7 @@ def sharded_train_check(torch, training: dict, card: str, mesh,
               if place.is_dtensor(p)}
     if len(placed) < 2 or not all(place.is_dtensor(p)
                                   for p in model.parameters()):
-        raise AssertionError(f"shard (a): parameters not placed: {placed}")
+        raise AssertionError(f"{label}: parameters not placed: {placed}")
     held = {"params": place.local_bytes(model.parameters()),
             "opt": place.local_bytes(list(opt["m"].values())
                                      + list(opt["v"].values())
@@ -2781,9 +2802,9 @@ def sharded_train_check(torch, training: dict, card: str, mesh,
     plain = training["full"]["reference"]
     rel = abs(losses[0] - plain["losses"][0]) / abs(plain["losses"][0])
     batch = {"tokens": torch.as_tensor(fixed["tokens"], device=DEVICE)}
-    print(f"profile of one sharded {cfg.name} train step (warm):")
+    print(f"{label}: profile of one sharded {cfg.name} train step (warm):")
     _, busy = profiled(torch, lambda: loop.train_step(model, opt, batch))
-    print(f"shard (a): {cfg.name} TrainLoop on a (1, 1) mesh, "
+    print(f"{label}: {cfg.name} TrainLoop on a (1, 1) mesh, "
           f"{len(placed)} placements; losses "
           f"{[round(x, 4) for x in losses]}; first loss {losses[0]!r} "
           f"against the unsharded loop's {plain['losses'][0]!r} (phase 17): "
@@ -2793,10 +2814,10 @@ def sharded_train_check(torch, training: dict, card: str, mesh,
           f"max_memory_allocated {peak} B; held by the rank: parameters "
           f"{held['params']} B, moments {held['opt']} B [{card}]")
     if rel > SHARD_LOSS_RTOL:
-        raise AssertionError("shard (a): the sharded first loss differs from "
+        raise AssertionError(f"{label}: the sharded first loss differs from "
                              "the unsharded loop's")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"shard (a): the loss did not fall: {losses}")
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
     del loop, model, opt
     torch.cuda.empty_cache()
 
@@ -2811,11 +2832,11 @@ def sharded_train_check(torch, training: dict, card: str, mesh,
             f32, param_shapes(f32), mesh), mesh)
         got = float(mesh_loss(f32, model, batch, mesh))
     f32_rel = abs(got - want) / abs(want)
-    print(f"shard (a) f32, 2 layers at full width, batch {SHARD_F32_BATCH} x "
+    print(f"{label} f32, 2 layers at full width, batch {SHARD_F32_BATCH} x "
           f"{SHARD_F32_SEQ}: sharded loss {got!r}, plain {want!r}, relative "
           f"difference {f32_rel:.3e} (tol {SHARD_F32_RTOL:g})")
     if f32_rel > SHARD_F32_RTOL:
-        raise AssertionError("shard (a) f32: the sharded loss differs")
+        raise AssertionError(f"{label} f32: the sharded loss differs")
     del model
     torch.cuda.empty_cache()
     return {"losses": losses, "loss_rel": rel, "step_s": step_s,
@@ -2824,7 +2845,8 @@ def sharded_train_check(torch, training: dict, card: str, mesh,
 
 
 def ep_prefill_check(torch, fa_ops, fa_ref, count_tables, families: dict,
-                     card: str, mesh) -> dict:
+                     card: str, mesh, label: str = "shard (b)",
+                     act_shard: str = "none") -> dict:
     """Phase 18 (b): qwen3-moe-235b-a22b at phase 12's cut with
     ``moe_shard="ep_infer"`` on the one-rank mesh (the weights placed by
     the inference specs), served through ``ServingEngine``: every prefill
@@ -2838,12 +2860,12 @@ def ep_prefill_check(torch, fa_ops, fa_ref, count_tables, families: dict,
     from repro_torch.sharding import place, rules
 
     spec = next(s for s in FAMILY_PHASES if s.name == "moe")
-    cfg = family_cfg(spec, moe_shard="ep_infer")
+    cfg = family_cfg(spec, moe_shard="ep_infer", act_shard=act_shard)
     moe.set_mesh(mesh)
     calls = []
     ep = moe.moe_apply_ep
     with mock.patch.object(moe, "moe_apply_ep",
-                           lambda *a: calls.append(1) or ep(*a)):
+                           lambda *a, **kw: calls.append(1) or ep(*a, **kw)):
         model = init_params(cfg, torch.Generator(device=DEVICE)
                             .manual_seed(0), device=DEVICE)
         place.distribute_model(model, rules.param_specs(
@@ -2858,31 +2880,31 @@ def ep_prefill_check(torch, fa_ops, fa_ref, count_tables, families: dict,
         cold = engine.stats["prefill_s"]
         engine.generate(prompts, EP_NEW)
         warm = engine.stats["prefill_s"] - cold
-    print(f"shard (b) EP path counts (one prefill, {EP_NEW} decode steps): "
+    print(f"{label} EP path counts (one prefill, {EP_NEW} decode steps): "
           f"{counted}; moe_apply_ep calls {len(calls)}")
     if counted["kernel"] != {"flash_attention": spec.launches,
                              "tensor_core": spec.launches, "tf32x3": 0}:
-        raise AssertionError(f"shard (b): the EP prefill did not launch the "
+        raise AssertionError(f"{label}: the EP prefill did not launch the "
                              f"tensor-core flash kernel, and only it, "
                              f"{spec.launches} times: {counted['kernel']}")
     if any(counted["plain"].values()):
-        raise AssertionError("shard (b): the EP path ran the plain version")
+        raise AssertionError(f"{label}: the EP path ran the plain version")
     if len(calls) != 2 * cfg.n_layers * (1 + EP_NEW):
-        raise AssertionError(f"shard (b): {len(calls)} EP calls")
-    print(f"shard (b): EP prefill (4 x {spec.seq_len}) {cold:.4f} s cold, "
+        raise AssertionError(f"{label}: {len(calls)} EP calls")
+    print(f"{label}: EP prefill (4 x {spec.seq_len}) {cold:.4f} s cold, "
           f"{warm:.4f} s warm, against phase 12's non-EP "
           f"{families['moe']['prefill_s']:.4f} s [{card}]")
     batch = make_batch(cfg, FAMILY_BATCH, spec.seq_len, seed=0,
                        device=DEVICE)
     t0 = time.perf_counter()
     gate = bf16_logits_gate(torch, fa_ref, cfg, model, batch,
-                            spec.seq_len + EP_NEW, "moe EP", full=True)
+                            spec.seq_len + EP_NEW, f"{label} moe EP", full=True)
     gate_s = time.perf_counter() - t0
     del engine, model
     torch.cuda.empty_cache()
 
     f32 = family_cfg(spec, moe_shard="ep_infer", n_layers=EP_F32_LAYERS,
-                     dtype="float32")
+                     dtype="float32", act_shard=act_shard)
     t0 = time.perf_counter()
     model = init_params(f32, torch.Generator(device=DEVICE).manual_seed(0),
                         device=DEVICE)
@@ -2904,16 +2926,16 @@ def ep_prefill_check(torch, fa_ops, fa_ref, count_tables, families: dict,
     clean = ep_clean_rows(torch, routes["card"], routes["cpu"],
                           EP_F32_BATCH, EP_F32_SEQ)
     if not bool(clean.any()):
-        raise AssertionError("shard (b) f32: every row was rerouted")
+        raise AssertionError(f"{label} f32: every row was rerouted")
     diff = float((logits["card"][clean] - logits["cpu"][clean]).abs().max())
-    print(f"shard (b) f32 EP, {EP_F32_LAYERS} layers at full width, "
+    print(f"{label} f32 EP, {EP_F32_LAYERS} layers at full width, "
           f"{EP_F32_BATCH} x {EP_F32_SEQ}: card against CPU logits max abs "
           f"diff {diff:.3e} (tol {F32_LOGITS_TOL:g}) over {int(clean.sum())} "
           f"of {EP_F32_BATCH} rows; {launched['tf32x3']} split-TF32 "
           f"launches; the bf16 gate took {gate_s:.1f} s, the f32 check "
           f"{time.perf_counter() - t0:.1f} s")
     if diff > F32_LOGITS_TOL:
-        raise AssertionError("shard (b) f32: the card's EP differs from the "
+        raise AssertionError(f"{label} f32: the card's EP differs from the "
                              "CPU's")
     del model, cpu_model, logits
     torch.cuda.empty_cache()
@@ -2973,12 +2995,17 @@ def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
                    families: dict, card: str) -> dict:
     """Phase 18: the sharded paths on a one-rank NCCL group started from a
     ``FileStore``, over a (1, 1) mesh: (a) the sharded train step, (b) the
-    EP prefill, (c) the dry-run against the card."""
+    EP prefill, (c) the dry-run against the card.  (a) and (b) run the
+    whole-weight path (``tp.axis_of`` answering None: every weight
+    gathered whole at its use, FSDP over both axes), which phase 19's
+    tensor-parallel runs are read beside."""
     import tempfile
+    from unittest import mock
 
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_from_store, make_local_mesh
+    from repro_torch.sharding import tp
 
     t_phase = time.perf_counter()
     seconds = {}
@@ -2990,16 +3017,18 @@ def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
                                       0, 1, device=DEVICE)
             try:
                 mesh = make_local_mesh(1, 1, device=DEVICE)
-                print(f"shard: process group {backend}, mesh {mesh}")
-                t0 = time.perf_counter()
-                out = {"train": sharded_train_check(torch, training, card,
-                                                    mesh, tmp / "ckpt")}
-                seconds["a"] = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                out["ep"] = ep_prefill_check(torch, fa_ops, fa_ref,
-                                             count_tables, families, card,
-                                             mesh)
-                seconds["b"] = time.perf_counter() - t0
+                print(f"shard: process group {backend}, mesh {mesh}; the "
+                      f"whole-weight path")
+                with mock.patch.object(tp, "axis_of", lambda *a: None):
+                    t0 = time.perf_counter()
+                    out = {"train": sharded_train_check(
+                        torch, training, card, mesh, tmp / "ckpt")}
+                    seconds["a"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    out["ep"] = ep_prefill_check(torch, fa_ops, fa_ref,
+                                                 count_tables, families,
+                                                 card, mesh)
+                    seconds["b"] = time.perf_counter() - t0
             finally:
                 dist.destroy_process_group()
         t0 = time.perf_counter()
@@ -3011,6 +3040,237 @@ def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
             dry.communicate()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"sharding phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on the model axis
+# ---------------------------------------------------------------------------
+
+#: phase 19 (d): the production cells whose collective bytes are printed,
+#: tensor-parallel beside the whole-weight path: (arch, shape, act_shard)
+TP_DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", None),
+                   ("codeqwen1.5-7b", "prefill_32k", "seq_model"))
+
+_TP_DRYRUN = r"""
+import json, sys
+from unittest import mock
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.sharding import tp
+out = {}
+for cell in sys.argv[1].split(","):
+    arch, shape, act = cell.split(":")
+    for path in ("tp", "whole"):
+        with mock.patch.object(tp, "axis_of", (lambda *a: None)
+                               if path == "whole" else tp.axis_of):
+            r = run_cell(arch, shape, False, impl="blocked",
+                         act_shard=act or None)
+        out[f"{arch} {shape} {path}"] = {
+            "status": r["status"], "error": r.get("error"),
+            **({k: r["roofline"][k] for k in (
+                "coll_bytes_per_device", "coll_breakdown", "collective_s",
+                "compute_s", "memory_s", "dominant")}
+               if r["status"] == "ok" else {})}
+print(json.dumps(out))
+"""
+
+
+def tp_dryrun_start() -> subprocess.Popen:
+    """Phase 19 (d)'s dry-run, in a process of its own (it starts a fake
+    process group) while (a)-(c) hold the card."""
+    cells = ",".join(f"{a}:{s}:{act or ''}" for a, s, act in TP_DRYRUN_CELLS)
+    return subprocess.Popen(
+        [sys.executable, "-c", _TP_DRYRUN, cells], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+
+
+def tp_dryrun_check(proc: subprocess.Popen) -> dict:
+    """Phase 19 (d): each cell's collective bytes a rank, tensor-parallel
+    and on the whole-weight path, printed; host
+    arithmetic at the H100 data sheet's link rate."""
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"tp (d): the dry-run failed: {stderr[-3000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    for cell, r in out.items():
+        if r["status"] != "ok":
+            raise AssertionError(f"tp (d) {cell}: {r['status']} {r['error']}")
+        kinds = {k: v for k, v in r["coll_breakdown"].items()
+                 if not k.startswith("_") and v}
+        print(f"tp (d) {cell} on pod16x16: {r['coll_bytes_per_device']!r} B "
+              f"of collective operands a rank ({kinds}); collective "
+              f"{r['collective_s']!r} s, compute {r['compute_s']!r} s, "
+              f"memory {r['memory_s']!r} s: {r['dominant']} dominates "
+              f"(host arithmetic)")
+    return out
+
+
+def tp_serve_check(torch, fa_ops, fa_ref, count_tables, mesh, requests,
+                   f32_serve: dict, card: str) -> dict:
+    """Phase 19 (b): codeqwen1.5-7b at full width in bf16, placed by the
+    inference specs on the one-rank mesh, served through ``ServingEngine``
+    (``prefill`` places its cache by ``cache_pspec``; ``decode_step`` reads
+    it): phase 6's requests, the tensor-core flash kernel once a layer a
+    prefill and nothing else, phase 7's bf16 gate; the same requests on
+    the same placed model's whole-weight path (``tp.axis_of`` answering
+    None), timed beside; in f32 at 2 layers, greedy tokens equal to phase
+    7's kernel path and the logits within ``F32_LOGITS_TOL``."""
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.sharding import place, rules, tp
+
+    cfg = dataclasses.replace(configs.get_config(SERVE_ARCH),
+                              attention_impl="pallas")
+    max_len = SERVE_PROMPT + SERVE_NEW
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    place.distribute_model(model, rules.param_specs(
+        cfg, param_shapes(cfg), mesh, training=False), mesh)
+    if tp.axis_of(cfg, model.parameters()) is None:
+        raise AssertionError("tp (b): the placed model is not tensor-parallel")
+    engine = ServingEngine(cfg, model, ServeConfig(max_len=max_len),
+                           device=DEVICE)
+    reset_counts(*count_tables)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = [engine.generate(prompts, SERVE_NEW) for prompts in requests]
+    counted = {"kernel": dict(fa_ops.counts), "plain": dict(fa_ref.counts)}
+    peak = torch.cuda.max_memory_allocated()
+    st = engine.stats
+    batch = {"tokens": torch.as_tensor(requests[0], dtype=torch.int64,
+                                       device=DEVICE)}
+    cache = prefill(cfg, model, batch, max_len)[1]
+    print(f"tp (b) serve path counts: {counted}; cache k {cache['k'].shape} "
+          f"placed {cache['k'].placements}")
+    del cache
+    want = cfg.n_layers * len(requests)
+    if counted["kernel"] != {"flash_attention": want, "tensor_core": want,
+                             "tf32x3": 0} or any(counted["plain"].values()):
+        raise AssertionError(f"tp (b): the serving run did not launch the "
+                             f"tensor-core flash kernel, and only it, {want} "
+                             f"times: {counted}")
+    print(f"tp (b): {cfg.name} tensor-parallel on (1, 1), "
+          f"{len(requests)} requests of {SERVE_BATCH} x {SERVE_PROMPT} x "
+          f"{SERVE_NEW}: prefill {st['prefill_s']:.4f} s, decode "
+          f"{st['decode_s']:.4f} s, {engine.tokens_per_s:.1f} tok/s; "
+          f"max_memory_allocated {peak} B [{card}]")
+    gate = bf16_logits_gate(torch, fa_ref, cfg, model, batch, max_len,
+                            f"tp (b) {cfg.name}")
+    tok_s = engine.tokens_per_s
+    whole = ServingEngine(cfg, model, ServeConfig(max_len=max_len),
+                          device=DEVICE)
+    with mock.patch.object(tp, "axis_of", lambda *a: None):
+        same = [int((whole.generate(p, SERVE_NEW) == o).sum())
+                for p, o in zip(requests, outs)]
+    ws, whole_tok_s = whole.stats, whole.tokens_per_s
+    print(f"tp (b): the same placed model on the whole-weight path: prefill "
+          f"{ws['prefill_s']:.4f} s, decode {ws['decode_s']:.4f} s, "
+          f"{whole_tok_s:.1f} tok/s; greedy tokens equal to the "
+          f"tensor-parallel path's {sum(same)} of {sum(o.size for o in outs)}"
+          f" [{card}]")
+    del engine, whole, model
+    torch.cuda.empty_cache()
+
+    f32 = dataclasses.replace(cfg, n_layers=F32_LAYERS, dtype="float32")
+    model = init_params(f32, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    place.distribute_model(model, rules.param_specs(
+        f32, param_shapes(f32), mesh, training=False), mesh)
+    reset_counts(fa_ops.counts)
+    logits = prefill(f32, model, batch, max_len)[0]
+    tokens = ServingEngine(f32, model, ServeConfig(max_len=max_len),
+                           device=DEVICE).generate(requests[0], SERVE_NEW)
+    launched = dict(fa_ops.counts)
+    diff = float((logits - f32_serve["logits"]).abs().max())
+    same = int((tokens == f32_serve["tokens"]).sum())
+    print(f"tp (b) f32, {F32_LAYERS} layers at full width: last-position "
+          f"prefill logits against phase 7's kernel path max abs diff "
+          f"{diff:.3e} (tol {F32_LOGITS_TOL:g}); greedy tokens equal {same} "
+          f"of {tokens.size}; {launched['tf32x3']} split-TF32 launches")
+    if diff > F32_LOGITS_TOL or same != tokens.size:
+        raise AssertionError("tp (b) f32: the tensor-parallel path differs "
+                             "from phase 7's")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": counted["kernel"]["tensor_core"],
+            "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+            "tok_s": tok_s, "peak_bytes": peak, "gate": gate,
+            "whole_weight": {"prefill_s": ws["prefill_s"],
+                             "decode_s": ws["decode_s"],
+                             "tok_s": whole_tok_s},
+            "f32": {"launches": launched["tf32x3"],
+                    "logits_max_abs_diff": diff}}
+
+
+def tensor_parallel_phase(torch, fa_ops, fa_ref, count_tables,
+                          training: dict, sharding: dict, families: dict,
+                          requests: list, f32_serve: dict, card: str
+                          ) -> dict:
+    """Phase 19: the ``model`` axis computing, on a one-rank NCCL group
+    over a (1, 1) mesh (every collective moves nothing): (a) stablelm's
+    ``TrainLoop(mesh=)`` tensor-parallel, beside phase 17's unsharded and
+    phase 18's whole-weight step; (b) codeqwen served tensor-parallel;
+    (c) qwen3-moe's EP prefill under sequence parallelism
+    (``act_shard="seq_model"``), phase 18 (b)'s gates; (d) the dry-run's
+    collective bytes of two production cells, printed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_from_store, make_local_mesh
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    dry = tp_dryrun_start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+            tmp = Path(tmp)
+            backend = init_from_store(dist.FileStore(str(tmp / "store"), 1),
+                                      0, 1, device=DEVICE)
+            try:
+                mesh = make_local_mesh(1, 1, device=DEVICE)
+                print(f"tp: process group {backend}, mesh {mesh}; the "
+                      f"tensor-parallel path")
+                t0 = time.perf_counter()
+                out = {"train": sharded_train_check(
+                    torch, training, card, mesh, tmp / "ckpt",
+                    label="tp (a)")}
+                fsdp = sharding["train"]
+                print(f"tp (a): step {out['train']['step_s']:.4f} s "
+                      f"(busy {out['train']['busy_share']:.4f}, peak "
+                      f"{out['train']['peak_bytes']} B) against phase 18's "
+                      f"whole-weight step {fsdp['step_s']:.4f} s (busy "
+                      f"{fsdp['busy_share']:.4f}, peak {fsdp['peak_bytes']} "
+                      f"B) and phase 17's unsharded "
+                      f"{fsdp['phase17_step_s']:.4f} s [{card}]")
+                seconds["a"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out["serve"] = tp_serve_check(torch, fa_ops, fa_ref,
+                                              count_tables, mesh, requests,
+                                              f32_serve, card)
+                seconds["b"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out["ep"] = ep_prefill_check(
+                    torch, fa_ops, fa_ref, count_tables, families, card,
+                    mesh, label="tp (c)", act_shard="seq_model")
+                seconds["c"] = time.perf_counter() - t0
+            finally:
+                dist.destroy_process_group()
+        t0 = time.perf_counter()
+        out["dryrun"] = tp_dryrun_check(dry)
+        seconds["d, after (a)-(c)"] = time.perf_counter() - t0
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tensor-parallel phase: {out['seconds']:.1f} s (" + ", ".join(
         f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
     return out
 
@@ -3384,10 +3644,12 @@ def main(argv=None) -> int:
     # -- phase 7: serving against the plain path -------------------------
     serve_against_plain(torch, fa_ref, srv)
     serve_cfg, first_prompts = srv["cfg"], srv["requests"][0]
+    serve_requests = srv["requests"]
     serve_counts = srv["counts"]
     del srv                         # frees the bf16 model
     torch.cuda.empty_cache()
-    f32_launches = f32_greedy_check(torch, fa_ops, first_prompts)
+    f32_serve = f32_greedy_check(torch, fa_ops, first_prompts)
+    f32_launches = f32_serve["launches"]
     torch.cuda.empty_cache()
 
     # -- phase 8: flash timing at the prefill shape -----------------------
@@ -3428,10 +3690,15 @@ def main(argv=None) -> int:
     sharding = sharding_phase(torch, fa_ops, fa_ref, count_tables, training,
                               families, card)
     phase_s["sharding"] = sharding["seconds"]
-    print("phases 9-18 seconds: " + ", ".join(
+    # -- phase 19: the model axis computing ---------------------------------
+    tensor_parallel = tensor_parallel_phase(
+        torch, fa_ops, fa_ref, count_tables, training, sharding, families,
+        serve_requests, f32_serve, card)
+    phase_s["tensor_parallel"] = tensor_parallel["seconds"]
+    print("phases 9-19 seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in phase_s.items()))
 
-    # -- phase 19: the kernels line and the result ------------------------
+    # -- phase 20: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -3496,9 +3763,17 @@ def main(argv=None) -> int:
     # its f32 check the split-TF32 one
     serving = {**families, "hybrid": hybrid}
     ep = sharding["ep"]
+    tp_ = tensor_parallel
     kernels[-2].update(family_launches={
         **{name: fam["launches"] for name, fam in serving.items()},
-        "moe_ep": ep["launches"]}, moe_ep_prefill_s=ep["prefill_s"],
+        "moe_ep": ep["launches"]}, tp_launches={
+        "codeqwen": tp_["serve"]["launches"],
+        "moe_ep_seq_model": tp_["ep"]["launches"]},
+        tp_prefill_s=tp_["serve"]["prefill_s"],
+        tp_gate_mean_ratio=tp_["serve"]["gate"]["mean_ratio"],
+        tp_moe_ep_seq_model_prefill_s=tp_["ep"]["prefill_s"],
+        tp_moe_ep_seq_model_gate_mean_ratio=tp_["ep"]["gate"]["mean_ratio"],
+        tp_train_step_s=tp_["train"]["step_s"], moe_ep_prefill_s=ep["prefill_s"],
         moe_ep_gate_mean_ratio=ep["gate"]["mean_ratio"], **{
         f"{name}_{key}": fam[key] for name, fam in serving.items()
         for key in ("prefill_s", "tok_s", "peak_bytes")}, **{
@@ -3521,6 +3796,8 @@ def main(argv=None) -> int:
         f32_family_launches={
             **{name: fam["f32"]["launches"] for name, fam in serving.items()},
             "moe_ep": ep["f32"]["launches"]},
+        tp_f32_launches={"codeqwen": tp_["serve"]["f32"]["launches"],
+                         "moe_ep_seq_model": tp_["ep"]["f32"]["launches"]},
         f32_family_logits_max_abs_diff={
             **{name: fam["f32"]["logits_max_abs_diff"]
                for name, fam in serving.items()},

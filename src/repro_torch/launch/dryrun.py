@@ -10,8 +10,12 @@ its arguments (parameters, AdamW moments, batch and decode cache, from
 the placements of ``sharding.rules``), the analytic FLOPs and bytes of
 ``launch/estimate.py``, the H100 roofline terms of ``launch/roofline.py``
 (the collective term from ``CommDebugMode`` over the port's own sharded
-step on meta tensors), and the sharding-rule fallbacks, as one JSON file;
-re-runs skip cells whose JSON already exists.
+step on meta tensors: tensor-parallel on the ``model`` axis for dense,
+vlm and moe; an inference cell with the inference specs, which shard
+weights on ``model`` only, and its decode cache placed by
+``rules.cache_pspec``, as the reference lowers them), and the
+sharding-rule fallbacks, as one JSON file; re-runs skip cells whose JSON
+already exists.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch all]

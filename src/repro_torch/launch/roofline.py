@@ -16,11 +16,12 @@ and one card cannot measure the link.
 torch gives no compiled program to parse, so the collective bytes come
 from ``CommDebugMode``: :func:`collectives` runs the port's own sharded
 step (``sharding.place``'s per-use gathers, their reduce-scatters in the
-backward, the MoE's all-to-alls) on the ``meta`` device under a fake
-process group of the mesh's size, at one and at two units of depth (a
-layer; an sLSTM or attention superblock for ssm and hybrid), counts
-each collective and its operand bytes on rank 0, and extrapolates
-linearly to the config's depth.  Where an op of the pass cannot run on
+backward, the tensor-parallel all-reduces, gathers and reduce-scatters
+of ``sharding.tp`` on the ``model`` axis, the MoE's all-to-alls) on the
+``meta`` device under a fake process group of the mesh's size, at one
+and at two units of depth (a layer; an sLSTM or attention superblock for
+ssm and hybrid), counts each collective and its operand bytes on rank 0,
+and extrapolates linearly to the config's depth.  Where an op of the pass cannot run on
 the meta device, the term is reported unavailable with the reason,
 never invented.
 """
@@ -129,18 +130,22 @@ _SHORT_SEQ = 256
 def _one_pass(cfg, shape, mesh, specs: dict, batch_spec: dict) -> tuple:
     """(bytes by kind, ops by kind) of one step of ``cfg`` on rank 0:
     the train step's loss and gradients, the prefill's last-position
-    logits, or one decode step, on this rank's rows of the batch.  Off
-    the MoE the sharded step moves weights and their gradients only
-    (activations stay on their rank; the loss's all-reduce is a scalar),
-    so a train or prefill pass runs at no more than ``_SHORT_SEQ``
-    positions: the recurrent families' token-by-token scans would take
-    minutes on the meta device at 32k."""
+    logits, or one decode step (on a cache placed as ``prefill`` places
+    it), on this rank's rows of the batch.  Where neither the MoE nor
+    tensor parallelism moves activations, the sharded step moves weights
+    and their gradients only (the loss's all-reduce is a scalar), so a
+    train or prefill pass runs at no more than ``_SHORT_SEQ`` positions:
+    the recurrent families' token-by-token scans would take minutes on
+    the meta device at 32k."""
     from ..models import transformer
-    from ..models.io import batch_specs
-    from ..sharding import place
+    from ..models.io import batch_specs, place_cache
+    from ..sharding import place, tp
+    from ..sharding.rules import model_role
     from ..training.train_step import mesh_loss
 
-    if not cfg.is_moe and shape.kind != "decode":
+    computes_tp = cfg.family in tp.FAMILIES and any(
+        model_role(n, s) for n, s in specs.items())
+    if not cfg.is_moe and not computes_tp and shape.kind != "decode":
         # weights only: the collectives do not depend on the sequence
         shape = dataclasses.replace(
             shape, seq_len=min(shape.seq_len, _SHORT_SEQ))
@@ -168,6 +173,8 @@ def _one_pass(cfg, shape, mesh, specs: dict, batch_spec: dict) -> tuple:
         else:
             cache = transformer.init_cache(cfg, rows["tokens"].shape[0],
                                            shape.seq_len, device="meta")
+            if computes_tp:
+                cache = place_cache(cfg, cache, mesh, device="meta")
             cache["pos"] = shape.seq_len - 1
             transformer.decode_step(cfg, model, cache, rows["tokens"])
     return dict(mode.bytes), dict(mode.ops)

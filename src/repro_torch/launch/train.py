@@ -6,10 +6,12 @@ committed checkpoint if present, then trains with deterministic batches
 (``--inject-failure-at`` proves the loop recovers).  With no mesh it
 runs on one device; with ``mesh=`` (a ``DeviceMesh`` of the running
 process group, every rank running the loop) the parameters and AdamW
-moments are DTensors placed by ``rules.param_specs`` / ``opt_pspec``,
-the step runs sharded (``training.train_step``), a restore places what
-it loads on the mesh, and a moe config's "ep" policy runs its all-to-all
-over the mesh's ``model`` axis.
+moments are DTensors placed by ``rules.param_specs`` / ``opt_pspec``
+(the reference's default ``tp=True``), the step runs sharded
+(``training.train_step``): dense, vlm and moe compute tensor-parallel on
+the mesh's ``model`` axis (``sharding.tp``), a restore places what it
+loads on the mesh, and a moe config's "ep" policy runs its all-to-all
+over the ``model`` axis.
 
 On the card, at full width and depth:
 

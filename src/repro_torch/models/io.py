@@ -6,7 +6,9 @@ numpy draws from ``default_rng(seed)``, so one seed gives the same tokens
 in both packages; ``batch_specs``, ``cache_specs`` and ``input_specs``
 return :class:`~repro_torch.models.transformer.TensorSpec` records where
 the reference returns ``jax.ShapeDtypeStruct``s, the cache's from
-``init_cache`` on the ``meta`` device.
+``init_cache`` on the ``meta`` device.  :func:`place_cache` places a
+decode cache on a mesh by ``rules.cache_pspec``, for a tensor-parallel
+model's ``prefill`` and ``decode_step``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from . import transformer
 from .transformer import TensorSpec
 
 __all__ = ["make_batch", "text_len", "input_specs", "batch_specs",
-           "cache_specs"]
+           "cache_specs", "place_cache"]
 
 
 def _emb_dtype(cfg) -> torch.dtype:
@@ -87,3 +89,37 @@ def input_specs(cfg, shape) -> dict:
     if shape.kind == "decode":
         specs["cache"] = cache_specs(cfg, shape)
     return specs
+
+
+def place_cache(cfg, cache: dict, mesh, device=None) -> dict:
+    """``cache`` (``init_cache``'s, of any device: only its shapes are
+    read) as zeros placed on ``mesh`` by the ``model`` entries of
+    ``rules.cache_pspec``: the k/v caches' heads where they divide the
+    axis, else their sequence where it does, else whole on every rank.
+    Each tensor is a DTensor whose local block this rank allocates on
+    ``device`` (default ``cuda``).  The batch rows are the caller's: the
+    ranks of a model group serve the same rows, so the other axes hold
+    them alike."""
+    from torch.distributed.tensor import DTensor
+
+    from ..sharding.rules import cache_pspec, placements
+
+    dev = resolve_device(device)
+    tensors = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    specs = cache_pspec(cfg, None, mesh, tensors)
+    out = dict(cache)
+    for name, v in tensors.items():
+        spec = tuple("model" if e == "model" or (
+            isinstance(e, tuple) and "model" in e) else None
+            for e in specs[name])
+        where = placements(mesh, spec)
+        shape = list(v.shape)
+        for p in where:
+            if p.is_shard():
+                shape[p.dim] //= mesh.size(mesh.mesh_dim_names.index(
+                    "model"))
+        out[name] = DTensor.from_local(
+            torch.zeros(shape, dtype=v.dtype, device=dev), mesh, where,
+            run_check=False, shape=v.shape,
+            stride=torch.empty(v.shape, device="meta").stride())
+    return out

@@ -19,11 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sharding import place
+from ..sharding import place, tp
 
 __all__ = [
     "Params", "dense_init", "embed_init", "init_device", "norm_apply", "norm_init", "rope",
-    "swiglu_mlp", "mlp_init", "gelu_mlp",
+    "swiglu_mlp", "mlp_init", "gelu_mlp", "raw",
 ]
 
 
@@ -47,8 +47,15 @@ class Params(nn.Module):
                     name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str) -> torch.Tensor:
-        # a DTensor weight is gathered whole at its use (sharding.place)
+        # a DTensor weight is gathered whole at its use (sharding.place);
+        # the tensor-parallel path reads its model block (sharding.tp)
         return place.local(getattr(self, name))
+
+
+def raw(p, name: str):
+    """A weight as stored (a DTensor stays one), from a module or a
+    dict."""
+    return getattr(p, name) if isinstance(p, nn.Module) else p[name]
 
 
 def init_device(generator: torch.Generator) -> torch.device:
@@ -129,11 +136,32 @@ def mlp_init(generator: torch.Generator, d: int, f: int, dtype,
                   w2=dense_init(generator, (f, d), dtype=dtype))
 
 
-def swiglu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+def _mlp(p, x: torch.Tensor, hidden, columns: tuple, t: Optional[tp.TP],
+         seq: bool) -> torch.Tensor:
+    """``hidden(w, x) @ w2``.  With ``t`` (the ``model`` axis) and the
+    ``columns`` weights column-, w2 row-sharded there, each rank computes
+    its block of d_ff: ``x`` enters by ``copy_to`` (a sequence shard under
+    ``seq``, by ``gather_sum``) and the partial product leaves by
+    ``reduce_from`` (``reduce_scatter``).  Otherwise the weights are whole
+    on every rank (``tp.whole``)."""
+    if all(tp.sharded(t, raw(p, n), 1) for n in columns) and tp.sharded(
+            t, raw(p, "w2"), 0):
+        w = {n: place.local(raw(p, n), keep_model=True)
+             for n in (*columns, "w2")}
+        x = tp.gather_sum(x, 1, t) if seq else tp.copy_to(x, t)
+        y = hidden(w, x) @ w["w2"]
+        return tp.reduce_scatter(y, 1, t) if seq else tp.reduce_from(y, t)
+    return tp.whole(lambda x: hidden(p, x) @ p["w2"], x, t, seq)
+
+
+def swiglu_mlp(p, x: torch.Tensor, t: Optional[tp.TP] = None,
+               seq: bool = False) -> torch.Tensor:
+    return _mlp(p, x, lambda w, x: F.silu(x @ w["w1"]) * (x @ w["w3"]),
+                ("w1", "w3"), t, seq)
 
 
 def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+    # jax.nn.gelu defaults to the tanh approximation; whisper's, whose
+    # weights stay whole on every rank
+    return _mlp(p, x, lambda w, x: F.gelu(x @ w["w1"], approximate="tanh"),
+                ("w1",), None, False)

@@ -20,7 +20,13 @@ the experts dividing its ``model`` axis, ``moe_apply`` runs
 :func:`moe_apply_ep`, the reference's ``shard_map`` body as per-rank
 code: each rank routes its own tokens, and ``all_to_all_single`` over the
 mesh's ``model`` group moves them to their experts' rank and back.
-Otherwise it runs the plain dispatch, as the reference does.
+Otherwise it runs the plain dispatch, as the reference does.  On a
+tensor-parallel model (``t``, :mod:`repro_torch.sharding.tp`) whose
+experts' d_ff the ``model`` axis shards (``n_experts`` does not divide
+it), the plain dispatch runs tensor-parallel inside the experts: every
+rank routes all of the tokens alike, and computes its block of d_ff of
+each expert (w1/w3 column-, w2 row-parallel); the partial combine is
+all-reduced, or reduce-scattered along the sequence under ``seq``.
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..sharding import place
-from .layers import Params, dense_init
+from ..sharding import place, tp
+from ..sharding.tp import _group
+from .layers import Params, dense_init, raw
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_ep", "moe_capacity",
            "moe_route", "set_mesh"]
@@ -101,19 +108,53 @@ def moe_route(p, cfg, x: torch.Tensor, capacity: int,
     return topv, ef, keep, slot
 
 
-def moe_apply(p, cfg, x: torch.Tensor,
-              capacity: Optional[int] = None) -> torch.Tensor:
+def moe_apply(p, cfg, x: torch.Tensor, capacity: Optional[int] = None,
+              *, t: Optional[tp.TP] = None, seq: bool = False
+              ) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  Batched index-based dispatch; the
     "ep" / "ep_infer" policies switch to the all-to-all path when a mesh
-    is set and the experts divide its ``model`` axis."""
+    is set and the experts divide its ``model`` axis.  With ``t``, x is
+    this rank's block of the sequence under ``seq`` (module
+    docstring)."""
     if (cfg.moe_shard in ("ep", "ep_infer") and _MESH is not None
             and cfg.n_experts % place.mesh_coordinate(_MESH, "model")[0]
             == 0):
-        return moe_apply_ep(p, cfg, x)
+        return moe_apply_ep(p, cfg, x, seq=seq)
+    if tp.sharded(t, raw(p, "w1"), 2) and tp.sharded(t, raw(p, "w3"), 2) \
+            and tp.sharded(t, raw(p, "w2"), 1):
+        return _moe_tp(p, cfg, x, capacity, t, seq)
+    return tp.whole(lambda x: _dispatch(p, cfg, x, capacity), x, t, seq)
+
+
+def _moe_tp(p, cfg, x: torch.Tensor, capacity: Optional[int], t: tp.TP,
+            seq: bool) -> torch.Tensor:
+    """Tensor parallelism inside the experts (module docstring).  The
+    routing is the same on every rank (its gradient needs no sum); the
+    gates meet partial expert outputs, so theirs does (``copy_to``)."""
+    route = tp.gather(x, 1, t) if seq else x
+    xin = tp.gather_sum(x, 1, t) if seq else tp.copy_to(x, t)
+    topv, _, keep, slot = moe_route(
+        None, cfg, route, capacity or moe_capacity(cfg, route.shape[1]),
+        router=place.local(raw(p, "router")))
+    weights = {name: place.local(raw(p, name), keep_model=True)
+               for name in ("w1", "w3", "w2")}
+    out = _dispatch(weights, cfg, xin, capacity,
+                    routing=(tp.copy_to(topv, t), keep, slot))
+    return tp.reduce_scatter(out, 1, t) if seq else tp.reduce_from(out, t)
+
+
+def _dispatch(p, cfg, x: torch.Tensor, capacity: Optional[int] = None,
+              routing: Optional[tuple] = None) -> torch.Tensor:
+    """The plain dispatch of x (B, S, D), routed by ``routing`` (the
+    gates, kept mask and slots of :func:`moe_route`) or by ``p``'s
+    router."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     capacity = capacity or moe_capacity(cfg, s)
-    topv, _, keep, slot = moe_route(p, cfg, x, capacity)
+    if routing is None:
+        topv, _, keep, slot = moe_route(p, cfg, x, capacity)
+    else:
+        topv, keep, slot = routing
 
     # dispatch: (B, E*C+1, D) buffer; the last row swallows drops
     token_of_choice = torch.arange(s, device=x.device).repeat_interleave(k)
@@ -161,11 +202,6 @@ def set_mesh(mesh) -> None:
     _MESH = mesh
 
 
-def _group(mesh, axis: str):
-    n, i = place.mesh_coordinate(mesh, axis)
-    return n, i, (mesh.get_group(axis) if n > 1 else None)
-
-
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_single`` of equal blocks along dim 0; its gradient is
     the same exchange of the gradient's blocks."""
@@ -186,41 +222,6 @@ class _AllToAll(torch.autograd.Function):
         return out, None
 
 
-def _all_gather(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(n)]
-    torch.distributed.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
-
-
-class _SplitSeq(torch.autograd.Function):
-    """This rank's 1/n of the sequence (dim 1) of a tensor the whole
-    axis holds alike; the gradient's parts are gathered back, so every
-    rank of the axis sees the whole gradient."""
-
-    @staticmethod
-    def forward(ctx, x, n, i, group):
-        ctx.n, ctx.group = n, group
-        return x.chunk(n, dim=1)[i].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_gather(g, 1, ctx.n, ctx.group), None, None, None
-
-
-class _GatherSeq(torch.autograd.Function):
-    """The axis's parts of the sequence (dim 1) gathered on every rank;
-    the gradient is this rank's part (the ranks use the whole alike)."""
-
-    @staticmethod
-    def forward(ctx, x, n, i, group):
-        ctx.n, ctx.i = n, i
-        return _all_gather(x, 1, n, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.chunk(ctx.n, dim=1)[ctx.i].contiguous(), None, None, None
-
-
 def _experts(w, n_model: int, j: int, token_axes: tuple):
     """This rank's E/|model| experts of ``w``, whole in their other dims.
     A DTensor is gathered over every axis but 'model' (the FSDP gather
@@ -228,26 +229,15 @@ def _experts(w, n_model: int, j: int, token_axes: tuple):
     other tokens; a plain tensor holds every expert whole."""
     if not place.is_dtensor(w):
         return w.chunk(n_model, dim=0)[j]
-    from torch.distributed.tensor import Partial, Replicate, Shard
-
-    mesh = w.device_mesh
-    names = mesh.mesh_dim_names
-    target = [Shard(0) if n == "model" else Replicate() for n in names]
-    grad = [Shard(0) if n == "model" else
-            (Partial() if n in token_axes else Replicate()) for n in names]
-    return w.redistribute(mesh, target).to_local(grad_placements=grad)
+    return place.local(w, token_axes, keep_model=True)
 
 
-def _raw(p, name: str):
-    """A weight as stored (a DTensor stays one), from a module or a
-    dict."""
-    return getattr(p, name) if isinstance(p, torch.nn.Module) else p[name]
-
-
-def moe_apply_ep(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def moe_apply_ep(p, cfg, x: torch.Tensor, seq: bool = False
+                 ) -> torch.Tensor:
     """x: (B_l, S, D) -> (B_l, S, D), the explicit expert-parallel
     all-to-all over the mesh of :func:`set_mesh`.  ``x`` is this rank's
-    rows (see above).  The weights' placement carries the reference's
+    rows (see above), or under ``seq`` (a sequence-parallel residual)
+    this rank's block of their sequence already, which it routes as is.  The weights' placement carries the reference's
     ``fsdp_weights``: "ep" places them over 'data' too (the training
     specs) and they are gathered on entry; "ep_infer" places them by
     expert only (the inference specs).  Either way each rank computes
@@ -261,17 +251,18 @@ def moe_apply_ep(p, cfg, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{e} experts do not divide the model axis "
                          f"({n_model})")
     _, s_all, d = x.shape
-    split = s_all % n_model == 0 and n_model > 1
+    split = not seq and s_all % n_model == 0 and n_model > 1
     batch_axes = place.current_batch_axes()
     # the mesh axes whose ranks hold other tokens than this rank's
     token_axes = tuple(a for a in ("data",) if a in batch_axes) + (
-        ("model",) if split else ())
-    xb = _SplitSeq.apply(x, n_model, j, g_model) if split else x
+        ("model",) if split or seq else ())
+    axis = tp.TP(n_model, j, g_model)
+    xb = tp.split(x, 1, axis) if split else x
     b_l, s_l, _ = xb.shape
     t = b_l * s_l
     cap = max(k, int(t * k * cfg.capacity_factor / e))
 
-    router = place.local(_raw(p, "router"), token_axes)
+    router = place.local(raw(p, "router"), token_axes)
     topv, ef, keep, slot = moe_route(None, cfg, xb.reshape(1, t, d), cap,
                                      router=router)
     topv, ef, keep, slot = (topv.reshape(t, k), ef.reshape(-1),
@@ -292,7 +283,7 @@ def moe_apply_ep(p, cfg, x: torch.Tensor) -> torch.Tensor:
     xin = xin.reshape(n_model, e_l, cap, d).transpose(0, 1).reshape(
         e_l, n_model * cap, d)
 
-    w1, w3, w2 = (_experts(_raw(p, name), n_model, j, token_axes)
+    w1, w3, w2 = (_experts(raw(p, name), n_model, j, token_axes)
                   for name in ("w1", "w3", "w2"))
     h = F.silu(torch.einsum("ecd,edf->ecf", xin, w1)) * torch.einsum(
         "ecd,edf->ecf", xin, w3)
@@ -309,4 +300,4 @@ def moe_apply_ep(p, cfg, x: torch.Tensor) -> torch.Tensor:
     out = y_flat[slot] * (topv.reshape(-1)[:, None].to(y.dtype)
                           * keep[:, None])
     out = out.reshape(t, k, d).sum(dim=1).reshape(b_l, s_l, d)
-    return _GatherSeq.apply(out, n_model, j, g_model) if split else out
+    return tp.gather(out, 1, axis) if split else out

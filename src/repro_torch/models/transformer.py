@@ -45,6 +45,23 @@ that fills the cache and unembeds the last position only, where the
 reference runs ``forward`` and ``fill_cache`` and leaves XLA to share
 their work.
 
+Tensor parallelism.  For dense, moe and vlm, a model placed on a mesh
+(``sharding.place.distribute_model``) whose weights the ``model`` axis
+shards computes tensor-parallel (:mod:`repro_torch.sharding.tp`): the
+embedding is a lookup in this rank's vocabulary block plus an all-reduce
+over the axis, attention and the MLP split their heads and d_ff, the MoE
+d_ff inside each expert (or its experts, "ep"), and the head gives each
+rank its vocabulary columns: ``loss_fn`` is a vocabulary-parallel cross
+entropy, with no whole (B, S, V) logits, while ``forward`` gathers them
+whole for its callers.  Under ``act_shard="seq_model"`` the residual
+stream between blocks is each rank's 1/|model| of the sequence
+(``_act_constraint``), the norms run on it, and it is gathered before
+each column-parallel product and reduce-scattered after each
+row-parallel one.  ``prefill`` then places its cache by
+``rules.cache_pspec`` (``models.io.place_cache``), and ``decode_step``
+reads that placement.  The audio, ssm and hybrid families gather every
+weight whole at its use.
+
 Audio, ssm and hybrid follow the reference exactly, including its
 ``fill_cache``, which only sets ``pos``: after :func:`prefill` the
 attention caches and the SSM and conv states are still zero, so decoding
@@ -63,6 +80,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding import place, tp
 from ..sharding.place import local
 from .attention import (
     _reference_attention, _split_heads, attention, attn_init,
@@ -321,22 +339,69 @@ def param_shapes(cfg) -> dict:
             for name, t in model.named_parameters()}
 
 
-def _embed_inputs(cfg, model: DenseLM, batch: dict):
+def _tp_axis(cfg, model) -> Optional[tp.TP]:
+    """The ``model`` axis the model computes tensor-parallel over, or
+    None (module docstring)."""
+    return tp.axis_of(cfg, model.parameters())
+
+
+def _seq_parallel(cfg, t: Optional[tp.TP], s: int) -> bool:
+    """The residual stream is each rank's block of the ``s`` positions:
+    ``act_shard="seq_model"`` on a tensor-parallel model, where ``s``
+    divides the axis (the reference's ``_act_constraint`` rule)."""
+    return (t is not None and cfg.act_shard == "seq_model" and s > 1
+            and s % t.n == 0)
+
+
+def _embed_tokens(cfg, model, tokens: torch.Tensor, t: Optional[tp.TP],
+                  scatter: bool = False) -> torch.Tensor:
+    """The tokens' embeddings; with a vocabulary-sharded table, a lookup
+    in this rank's block (zero elsewhere) summed over the axis, or
+    reduce-scattered along the sequence where ``scatter``."""
+    if not tp.sharded(t, model.embed, 0):
+        x = local(model.embed)[tokens].to(_dt(cfg))
+        return tp.split(x, 1, t) if scatter else x
+    table = local(model.embed, keep_model=True)
+    index = tokens.long() - t.i * table.shape[0]
+    held = (index >= 0) & (index < table.shape[0])
+    x = (table[index.clamp(0, table.shape[0] - 1)]
+         * held[..., None]).to(_dt(cfg))
+    return tp.reduce_scatter(x, 1, t) if scatter else tp.reduce_from(x, t)
+
+
+def _embed_inputs(cfg, model: DenseLM, batch: dict,
+                  t: Optional[tp.TP] = None, seq: bool = False):
     """Token embedding, after the patch prefix for vlm; positions over
-    the whole length."""
+    the whole length.  Under ``seq`` the embedding is this rank's block
+    of the sequence."""
     tokens = batch["tokens"].to(model.device)
-    x = local(model.embed)[tokens].to(_dt(cfg))
-    if cfg.family == "vlm":
+    vlm = cfg.family == "vlm"
+    x = _embed_tokens(cfg, model, tokens, t, scatter=seq and not vlm)
+    if vlm:
         patches = batch["patches"].to(model.device, _dt(cfg))
-        x = torch.cat([patches, x], dim=1)
-    b, s, _ = x.shape
+        x = _act_constraint(cfg, torch.cat([patches, x], dim=1), t)
+    b, s = tokens.shape[0], tokens.shape[1] + (cfg.n_patches if vlm else 0)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     return x, positions
 
 
-def _ffn(cfg, p: DenseBlock, h: torch.Tensor) -> torch.Tensor:
-    return moe_apply(p.moe, cfg, h) if cfg.is_moe else swiglu_mlp(p.mlp, h)
+def _norm(cfg, p: Params, x: torch.Tensor, seq: bool) -> torch.Tensor:
+    """``norm_apply``; under ``seq`` each rank normalises other positions,
+    so the weights' gradient is a partial sum over the ``model`` axis
+    too."""
+    if not seq:
+        return norm_apply(p, x, cfg.norm)
+    axes = place.current_batch_axes() + ("model",)
+    return norm_apply({name: local(w, axes)
+                       for name, w in p._parameters.items()}, x, cfg.norm)
+
+
+def _ffn(cfg, p: DenseBlock, h: torch.Tensor, t: Optional[tp.TP] = None,
+         seq: bool = False) -> torch.Tensor:
+    if cfg.is_moe:
+        return moe_apply(p.moe, cfg, h, t=t, seq=seq)
+    return swiglu_mlp(p.mlp, h, t, seq)
 
 
 def _remat(cfg, block: nn.Module, fn: Callable, x: torch.Tensor
@@ -353,20 +418,46 @@ def _remat(cfg, block: nn.Module, fn: Callable, x: torch.Tensor
 
 
 def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """One block; returns (x, (k, v)) with the block's k/v heads."""
-    h = norm_apply(p.ln1, x, cfg.norm)
-    a, kv = attention(p.attn, cfg, h, positions)
+                 positions: torch.Tensor, t: Optional[tp.TP] = None,
+                 seq: bool = False):
+    """One block; returns (x, (k, v)) with the block's k/v heads.  With
+    ``t``, tensor-parallel (``x`` this rank's block of the sequence under
+    ``seq``)."""
+    h = _norm(cfg, p.ln1, x, seq)
+    a, kv = attention(p.attn, cfg, h, positions, t=t, seq=seq)
     x = x + a
-    h = norm_apply(p.ln2, x, cfg.norm)
-    return x + _ffn(cfg, p, h), kv
+    h = _norm(cfg, p.ln2, x, seq)
+    return x + _ffn(cfg, p, h, t, seq), kv
 
 
-def _unembed(cfg, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
+def _head_weight(model) -> tuple:
+    """(the unembedding weight as stored, its vocabulary dim)."""
+    return ((model.embed, 0) if model.lm_head is None
+            else (model.lm_head, 1))
+
+
+def _head(model, t: Optional[tp.TP]):
+    """(the unembedding (D, V), or this rank's vocabulary columns of it,
+    and the first vocabulary id it holds); the id is None where the head
+    is whole."""
+    w, dim = _head_weight(model)
+    if tp.sharded(t, w, dim):
+        head = local(w, keep_model=True)
+        head = head.T if dim == 0 else head
+        return head, t.i * head.shape[1]
+    head = local(w)
+    return (head.T if dim == 0 else head), None
+
+
+def _unembed(cfg, model: DenseLM, x: torch.Tensor,
+             t: Optional[tp.TP] = None) -> torch.Tensor:
+    """Whole logits of ``x`` (every position of it on every rank); a
+    vocabulary-sharded head's columns are gathered over the axis."""
     x = norm_apply(model.final_norm, x, cfg.norm)
-    head = (local(model.embed).T if model.lm_head is None
-            else local(model.lm_head))
-    return x @ head
+    head, v0 = _head(model, t)
+    if v0 is None:
+        return x @ head
+    return tp.gather(tp.copy_to(x, t) @ head, -1, t)
 
 
 # -- audio (whisper) ---------------------------------------------------------
@@ -461,26 +552,40 @@ def forward(cfg, model, batch: dict, *,
             x = x[:, -1:, :]
         x = norm_apply(model.final_norm, x, cfg.norm)
         return x @ local(model.embed).T   # whisper ties embeddings
-    x, positions = _embed_inputs(cfg, model, batch)
-    x = _backbone_full(cfg, model, x, positions)
+    t = _tp_axis(cfg, model)
+    seq = _seq_parallel(cfg, t, _seq_len(cfg, batch))
+    x, positions = _embed_inputs(cfg, model, batch, t, seq)
+    x = _backbone_full(cfg, model, x, positions, t, seq)
+    if seq:
+        x = tp.gather(x[:, -1:] if last_only else x, 1, t)
     if last_only:
         x = x[:, -1:, :]
-    return _unembed(cfg, model, x)
+    return _unembed(cfg, model, x, t)
 
 
-def _act_constraint(cfg, x):
-    """Sequence-parallel residual stream (``act_shard="seq_model"``): a
-    DTensor residual is redistributed to ``Shard(1)`` on the ``model``
-    mesh axis when the token dim divides it, as the reference's
-    ``with_sharding_constraint``.  The identity on a plain tensor: the
-    port's sharded step keeps the residual as each rank's local rows
-    (:mod:`repro_torch.sharding.place`)."""
+def _seq_len(cfg, batch: dict) -> int:
+    """The length of the residual stream: the tokens, after the patch
+    prefix for vlm."""
+    return batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm"
+                                       else 0)
+
+
+def _act_constraint(cfg, x, t: Optional[tp.TP] = None):
+    """Sequence-parallel residual stream (``act_shard="seq_model"``),
+    where the token dim divides the ``model`` axis, as the reference's
+    ``with_sharding_constraint``: a DTensor residual is redistributed to
+    ``Shard(1)`` on the axis; a plain whole-sequence residual of a
+    tensor-parallel model (``t``) becomes this rank's block of it.  The
+    identity on any other plain tensor: the sharded step keeps the
+    residual as each rank's local rows
+    (:mod:`repro_torch.sharding.place`), and a tensor-parallel stream
+    that is already a block stays one."""
     if cfg.act_shard != "seq_model" or x.ndim != 3 or x.shape[1] <= 1:
         return x
     from torch.distributed.tensor import DTensor, Shard
 
     if not isinstance(x, DTensor):
-        return x
+        return tp.split(x, 1, t) if _seq_parallel(cfg, t, x.shape[1]) else x
     mesh = x.device_mesh
     names = mesh.mesh_dim_names or ()
     if "model" not in names or x.shape[1] % mesh.size(
@@ -492,11 +597,14 @@ def _act_constraint(cfg, x):
 
 
 def _backbone_full(cfg, model, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor, t: Optional[tp.TP] = None,
+                   seq: bool = False) -> torch.Tensor:
     """Full-sequence pass through the blocks (train / prefill).  The
     blocks the reference recomputes under ``cfg.remat == "full"``: each
     dense block, the mLSTM blocks (not the sLSTM ones) and the Mamba2
-    blocks (not the shared attention block)."""
+    blocks (not the shared attention block).  With ``t`` the dense
+    blocks run tensor-parallel (``x`` this rank's block of the sequence
+    under ``seq``, and so is the result)."""
     if cfg.family == "ssm":
         for mblocks, sblock in zip(model.mblocks, model.sblocks):
             for p in mblocks:
@@ -518,7 +626,7 @@ def _backbone_full(cfg, model, x: torch.Tensor,
         return x
 
     def block(p, x):
-        return _dense_block(cfg, p, x, positions)[0]
+        return _dense_block(cfg, p, x, positions, t, seq)[0]
 
     for p in model.layers:
         x = _act_constraint(cfg, x)
@@ -530,7 +638,12 @@ def loss_fn(cfg, model, batch: dict):
     """Next-token cross entropy, the mean over every (row, position) but
     the last; for vlm only the text positions count.  Returns (loss,
     {"loss", "perplexity"}), f32 scalars; differentiable with respect to
-    the weights where they require grad."""
+    the weights where they require grad.  A tensor-parallel model with a
+    vocabulary-sharded head takes the vocabulary-parallel cross entropy
+    (``tp.vocab_parallel_nll``): no rank builds whole logits."""
+    t = _tp_axis(cfg, model)
+    if t is not None and tp.sharded(t, *_head_weight(model)):
+        return _tp_loss(cfg, model, batch, t)
     logits = forward(cfg, model, batch).float()
     tokens = batch["tokens"].to(model.device)
     if cfg.family == "vlm":
@@ -540,6 +653,25 @@ def loss_fn(cfg, model, batch: dict):
     logz = torch.logsumexp(shift_logits, dim=-1)
     gold = torch.gather(shift_logits, -1, shift_labels[..., None])[..., 0]
     nll = (logz - gold).mean()
+    return nll, {"loss": nll, "perplexity": torch.exp(nll)}
+
+
+def _tp_loss(cfg, model: DenseLM, batch: dict, t: tp.TP):
+    """``loss_fn`` of a tensor-parallel model whose head is split over the
+    vocabulary: the final norm on this rank's positions (under seq), the
+    sequence gathered, each rank's logit columns, then
+    ``tp.vocab_parallel_nll``.  The same on every rank of the axis."""
+    seq = _seq_parallel(cfg, t, _seq_len(cfg, batch))
+    x, positions = _embed_inputs(cfg, model, batch, t, seq)
+    x = _backbone_full(cfg, model, x, positions, t, seq)
+    x = _norm(cfg, model.final_norm, x, seq)
+    x = tp.gather_sum(x, 1, t) if seq else tp.copy_to(x, t)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:]                          # text segment
+    head, v0 = _head(model, t)
+    tokens = batch["tokens"].to(model.device)
+    nll = tp.vocab_parallel_nll(x[:, :-1] @ head, tokens[:, 1:], v0,
+                                t).mean()
     return nll, {"loss": nll, "perplexity": torch.exp(nll)}
 
 
@@ -578,21 +710,43 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     return cache
 
 
+def _cache_blocks(cache: dict):
+    """(this rank's blocks of the k and v caches, and the dim of a
+    layer's (B, S, Hkv, hd) block the ``model`` axis splits: 2 for the
+    heads, 1 for the sequence, None where each rank holds it whole)."""
+    k, v = cache["k"], cache["v"]
+    dim = tp.model_dim(k)
+    if not place.is_dtensor(k):
+        return k, v, None
+    return k.to_local(), v.to_local(), None if dim is None else dim - 1
+
+
 def _prefill_pass(cfg, model: DenseLM, batch: dict, cache: dict,
                   logits: bool):
-    """One pass over the layers: each writes its k/v into the cache; the
-    last position is unembedded when ``logits``."""
-    x, positions = _embed_inputs(cfg, model, batch)
-    s = x.shape[1]
+    """One pass over the layers: each writes its k/v into the cache (this
+    rank's block of a placed one); the last position is unembedded when
+    ``logits``."""
+    t = _tp_axis(cfg, model)
+    seq = _seq_parallel(cfg, t, _seq_len(cfg, batch))
+    x, positions = _embed_inputs(cfg, model, batch, t, seq)
+    s = positions.shape[1]
     if s > cache["k"].shape[2]:
         raise ValueError(f"prompt of {s} positions exceeds the cache's "
                          f"{cache['k'].shape[2]} positions")
+    kc, vc, dim = _cache_blocks(cache)
+    # the cache block's first position, and how many of the prompt's it
+    # holds
+    lo = t.i * kc.shape[2] if dim == 1 else 0
+    n = min(max(s - lo, 0), kc.shape[2])
     for i, p in enumerate(model.layers):
-        x, (k, v) = _dense_block(cfg, p, x, positions)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        x, (k, v) = _dense_block(cfg, p, x, positions, t, seq)
+        kc[i, :, :n] = k[:, lo:lo + n]
+        vc[i, :, :n] = v[:, lo:lo + n]
     cache["pos"] = s
-    return (_unembed(cfg, model, x[:, -1:, :]) if logits else None), cache
+    if not logits:
+        return None, cache
+    x = tp.gather(x[:, -1:], 1, t)[:, -1:] if seq else x[:, -1:]
+    return _unembed(cfg, model, x, t), cache
 
 
 @torch.no_grad()
@@ -609,8 +763,14 @@ def fill_cache(cfg, model, batch: dict, cache: dict) -> dict:
 def prefill(cfg, model, batch: dict, max_len: int):
     """Run the full prompt, build the decode cache, return the last
     position's logits (B, 1, V) and the cache."""
+    t = _tp_axis(cfg, model)
     cache = init_cache(cfg, batch["tokens"].shape[0], max_len,
-                       device=model.device)
+                       device="meta" if t else model.device)
+    if t is not None:
+        from .io import place_cache
+
+        cache = place_cache(cfg, cache, model.embed.device_mesh,
+                            device=model.device)
     if cfg.family in _POS_ONLY_FILL:
         logits = forward(cfg, model, batch, last_only=True)
         return logits, fill_cache(cfg, model, batch, cache)
@@ -622,7 +782,8 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), cache)."""
     pos = cache["pos"]
     dt = _dt(cfg)
-    x = local(model.embed)[tokens.to(model.device)].to(dt)
+    t = _tp_axis(cfg, model)
+    x = _embed_tokens(cfg, model, tokens.to(model.device), t)
     if cfg.family == "ssm":
         x = _xlstm_decode(cfg, model, cache, x)
         cache["pos"] = pos + 1
@@ -646,15 +807,16 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
         x = norm_apply(model.final_norm, x, cfg.norm)
         cache["pos"] = pos + 1
         return x @ local(model.embed).T, cache
+    kc, vc, dim = _cache_blocks(cache)
     for i, p in enumerate(model.layers):
         h = norm_apply(p.ln1, x, cfg.norm)
-        a, _, _ = decode_attention(p.attn, cfg, h, cache["k"][i],
-                                   cache["v"][i], pos)
+        a, _, _ = decode_attention(p.attn, cfg, h, kc[i], vc[i], pos, t=t,
+                                   cache_dim=dim)
         x = x + a
         h = norm_apply(p.ln2, x, cfg.norm)
-        x = x + _ffn(cfg, p, h)
+        x = x + _ffn(cfg, p, h, t)
     cache["pos"] = pos + 1
-    return _unembed(cfg, model, x), cache
+    return _unembed(cfg, model, x, t), cache
 
 
 def _xlstm_decode(cfg, model: XLSTMLM, cache: dict,

@@ -1,7 +1,8 @@
 """Sharding: logical axes -> mesh axes with divisibility fallback
-(``rules``), and parameters placed as DTensors on a ``DeviceMesh``
-(``place``).  The port of ``src/repro/sharding``."""
-from . import place, rules
+(``rules``), parameters placed as DTensors on a ``DeviceMesh``
+(``place``), and the ``model`` axis's tensor and sequence parallelism
+(``tp``).  The port of ``src/repro/sharding``."""
+from . import place, rules, tp
 from .rules import (
     batch_specs_pspec, cache_pspec, fallback_report, opt_pspec,
     param_specs, placements,
@@ -9,5 +10,5 @@ from .rules import (
 
 __all__ = [
     "batch_specs_pspec", "cache_pspec", "fallback_report", "opt_pspec",
-    "param_specs", "place", "placements", "rules",
+    "param_specs", "place", "placements", "rules", "tp",
 ]

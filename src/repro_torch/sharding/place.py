@@ -13,9 +13,10 @@ are whole at once.  The gradient of the gathered tensor flows back as a
 partial sum over the mesh axes the batch rows are split over
 (:func:`batch_axes`), which DTensor reduce-scatters onto the
 parameter's placement.  Activations stay plain local tensors: each rank
-holds its rows of the batch, and ranks of the ``model`` axis compute the
-same rows (the model axis shards weights, gradients, moments and the
-MoE's experts, not the dense matmuls).
+holds its rows of the batch.  A weight the tensor-parallel path computes
+with (``sharding.tp``) is gathered over its other axes only and keeps
+its ``model`` shard (``local(..., keep_model=True)``); the rest are
+gathered whole.
 """
 
 from __future__ import annotations
@@ -54,20 +55,31 @@ def current_batch_axes() -> tuple:
     return _BATCH_AXES
 
 
-def local(t, partial_axes: tuple | None = None):
+def local(t, partial_axes: tuple | None = None, *, keep_model: bool = False):
     """``t`` as a plain tensor: a DTensor is all-gathered to a full
     replica on this rank, its gradient a partial sum over
     ``partial_axes`` (the axes whose ranks use it on other tokens; by
-    default the batch axes); any other tensor is returned as it is."""
+    default the batch axes); any other tensor is returned as it is.
+    With ``keep_model`` a DTensor sharded on the ``model`` axis is
+    gathered over its other axes only: the result is this rank's
+    ``model`` block, and so is its gradient."""
     if type(t) in (torch.Tensor, nn.Parameter) or not is_dtensor(t):
         return t
     from torch.distributed.tensor import Partial, Replicate
 
     partial = _BATCH_AXES if partial_axes is None else partial_axes
     mesh = t.device_mesh
-    full = t.redistribute(mesh, [Replicate()] * mesh.ndim)
-    grad = [Partial() if n in partial else Replicate()
-            for n in mesh.mesh_dim_names]
+    kept = [p if keep_model and n == "model" and p.is_shard() else None
+            for n, p in zip(mesh.mesh_dim_names, t.placements)]
+    target = [k or Replicate() for k in kept]
+    # a weight already placed so (the inference specs' blocks) moves not;
+    # under autograd the redistribution stays, as its backward reduces the
+    # partial gradient onto the weight's placement
+    moves = list(t.placements) != target or (
+        torch.is_grad_enabled() and t.requires_grad)
+    full = t.redistribute(mesh, target) if moves else t
+    grad = [k or (Partial() if n in partial else Replicate())
+            for n, k in zip(mesh.mesh_dim_names, kept)]
     return full.to_local(grad_placements=grad)
 
 

@@ -40,6 +40,7 @@ import re
 __all__ = [
     "param_specs", "batch_specs_pspec", "cache_pspec", "opt_pspec",
     "placements", "fallback_report", "reference_path", "axis_sizes",
+    "model_role",
 ]
 
 # path-suffix regex -> logical spec for the trailing dims
@@ -116,6 +117,22 @@ def _sanitize(spec: tuple, shape: tuple, sizes: dict, path: str,
         used.add(axis)
         out.append(axis)
     return tuple(out)
+
+
+def model_role(name: str, spec: tuple):
+    """How the tensor-parallel path computes with the weight ``name``
+    placed by ``spec``: "column" (``model`` on its last, output dim),
+    "row" (on its input dim), "vocab" (the embedding's vocabulary),
+    "expert" (a MoE weight's expert dim), or None (replicated on
+    ``model``)."""
+    dims = [d for d, e in enumerate(spec)
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+    if not dims:
+        return None
+    if re.search(r"(^|[./])embed$", name):
+        return "vocab"
+    return {len(spec) - 1: "column", len(spec) - 2: "row"}.get(
+        dims[0], "expert")
 
 
 def _moe_expert_div(cfg, sizes) -> bool:

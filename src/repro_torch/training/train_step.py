@@ -14,8 +14,13 @@ With ``mesh=`` the step is the reference's sharded ``jax.jit``: the
 model's parameters are DTensors (``sharding.place.distribute_model``),
 each rank takes its rows of the batch by ``rules.batch_specs_pspec``'s
 rule (dim 0 over the data axes where it divides them), each weight is
-gathered whole at its use and its gradient reduce-scattered onto its
-placement, and the loss is the mean over the global batch.
+gathered at its use (over every axis, or, where the model computes
+tensor-parallel on the ``model`` axis, over the others: see
+``sharding.tp``) and its gradient, a partial sum over the batch axes,
+reduce-scattered onto its placement, and the loss is the mean over the
+global batch.  Compression under a mesh blocks each global gradient as
+the reference's does: a placed gradient is gathered whole, compressed
+with its layer's stack, and each rank keeps its block of the result.
 """
 
 from __future__ import annotations
@@ -39,7 +44,24 @@ def _compress_round_trip(grads: dict) -> dict:
     reference blocks them: its leaves stack a parameter of every layer
     (the port's names that differ only in their integer parts, stacked in
     index order), and a block of 256 elements may straddle two layers
-    where a layer's tensor is not a whole number of blocks."""
+    where a layer's tensor is not a whole number of blocks.  A DTensor
+    gradient is compressed whole (the global tensor) and comes back
+    with its placement."""
+    placed = {n: g for n, g in grads.items() if place.is_dtensor(g)}
+    if placed:
+        from torch.distributed.tensor import DTensor, Replicate
+
+        back = _compress_round_trip(
+            {n: g.full_tensor() if n in placed else g
+             for n, g in grads.items()})
+        for n, g in placed.items():
+            mesh = g.device_mesh
+            back[n] = DTensor.from_local(
+                back[n], mesh, [Replicate()] * mesh.ndim,
+                run_check=False).redistribute(mesh, [
+                    Replicate() if p.is_partial() else p
+                    for p in g.placements])
+        return back
     stacks: dict = {}
     for name in grads:
         parts = name.split(".")
@@ -114,9 +136,6 @@ def make_steps(cfg, opt_cfg: Optional[OptConfig] = None, *,
     takes a model placed on it and the global batch (every rank the
     same), and runs sharded."""
     opt_cfg = opt_cfg or OptConfig()
-    if mesh is not None and compress_grads:
-        raise NotImplementedError(
-            "gradient compression of a sharded step is not ported")
 
     def grads_of(params: dict, model, batch: dict):
         """(the global batch's mean loss, metrics, gradients)."""

@@ -36,6 +36,7 @@ import repro_torch.training, repro_torch.training.checkpoint
 import repro_torch.training.compression, repro_torch.data
 import repro_torch.sharding, repro_torch.sharding.rules
 import repro_torch.sharding.place, repro_torch.training.pipeline
+import repro_torch.sharding.tp
 import repro_torch.launch.mesh, repro_torch.launch.estimate
 import repro_torch.launch.roofline, repro_torch.launch.dryrun
 import repro_torch.launch.report
