@@ -85,7 +85,8 @@ Phases, in order; any failure exits non-zero and none is caught:
    mining on the card (each tenant's mine launches the frontier kernel,
    never a plain version), mean read latency below the baseline's, and
    latencies, statistics and exchanged patterns equal to the same run on
-   the CPU; one profile of a tenant's warm ``mine_now``.
+   the CPU (run in a process of its own beside phases 9-20 and read after
+   them); one profile of a tenant's warm ``mine_now``.
 11. Expert prefetcher: ``bench_serving``'s full closed loop (4 shards,
    500 requests) for each traffic shape, one ``ExpertPrefetcher`` a
    tenant mining on the card (frontier kernel only, ``ExpertStore``
@@ -172,8 +173,23 @@ Phases, in order; any failure exits non-zero and none is caught:
    ``act_shard="seq_model"`` (the EP under sequence parallelism), its
    gates; (d) the dry-run's collective bytes of stablelm-1.6b
    ``train_4k`` and codeqwen1.5-7b ``prefill_32k`` on pod16x16,
-   tensor-parallel beside the whole-weight path, printed.
-20. One JSON line describing each ported kernel, then the result line.
+   tensor-parallel beside the whole-weight path, printed; and of one
+   production cell a family of audio, ssm and hybrid (whisper-large-v3
+   and zamba2-7b ``prefill_32k`` under ``seq_model``, xlstm-1.3b
+   ``train_4k``).
+20. The ``model`` axis computing for audio, ssm and hybrid, on a one-rank
+   NCCL group over a (1, 1) mesh: (a) whisper-large-v3, zamba2-7b and
+   xlstm-1.3b at full size in bf16, placed by the inference specs, at
+   phases 13, 15 and 16's batch and prompts, 8 greedy tokens (the caches
+   placed by ``cache_pspec``), tensor-parallel beside the same placed
+   model's whole-weight path: 96 and 13 tensor-core flash launches a
+   prefill and nothing else, phase 7's bf16 gate, and in f32 at 2, 7 and
+   8 layers greedy tokens and last-position logits equal to the
+   whole-weight path's within 1e-6; (b) zamba2-7b's ``TrainLoop(..., mesh=)`` at full
+   width cut to one superblock, tensor-parallel: its first loss within
+   1e-4 relative of the unplaced loop's, and in f32 at 2 and 7 layers
+   the placed loss within 1e-6 of ``loss_fn``'s.
+21. One JSON line describing each ported kernel, then the result line.
 
 It imports the port, torch, numpy and the standard library only, and
 exits non-zero without a result when CUDA is absent or the port is not
@@ -183,6 +199,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import dataclasses
 import json
@@ -1487,8 +1504,8 @@ def cluster_run(torch, core, ops, ref, device) -> dict:
 def cluster_phase(torch, core, ops, ref, card: str) -> dict:
     """Phase 10: ``bench_cluster``'s largest static configuration (8
     shards, 16 tenants, 250 TPC-C transactions a tenant a stage) with
-    every tenant mining on the card, beside the baseline and the same run
-    on the CPU."""
+    every tenant mining on the card, beside the baseline; the same run on
+    the CPU is :func:`cluster_cpu_check`'s."""
     run = cluster_run(torch, core, ops, ref, DEVICE)
     launches = sum(n for n, _ in run["per_tenant"])
     if any(n == 0 or plain for n, plain in run["per_tenant"]):
@@ -1506,11 +1523,6 @@ def cluster_phase(torch, core, ops, ref, card: str) -> dict:
     if not mean_us < base_us:
         raise AssertionError(f"the cluster's mean read latency {mean_us} us "
                              f"does not beat the baseline's {base_us} us")
-    cpu = cluster_run(torch, core, ops, ref, "cpu")
-    for key in ("lats", "agg", "per_shard", "patterns", "col_patterns"):
-        if cpu[key] != run[key]:
-            raise AssertionError(f"the cluster on the CPU differs from the "
-                                 f"card's in {key}")
     agg = run["agg"]
     print(f"cluster: {CLUSTER_SHARDS} shards, {CLUSTER_TENANTS} tenants x "
           f"{CLUSTER_TX} TPC-C transactions a stage ({run['sessions'][0]} "
@@ -1520,12 +1532,10 @@ def cluster_phase(torch, core, ops, ref, card: str) -> dict:
           f"against the baseline's {base_us:.2f} us, p99 "
           f"{core.percentile(base_lats, 99.0) * 1e6:.2f} us (virtual clock); "
           f"{len(run['patterns'])} row and {len(run['col_patterns'])} column "
-          f"patterns exchanged; equal to the CPU run in latencies, "
-          f"statistics, per-shard statistics and patterns")
+          f"patterns exchanged")
     print(f"cluster walls: stage 1 {run['stage1_s']:.2f} s, mine_all "
           f"{run['mine_s']:.2f} s on the card ({launches} frontier launches, "
-          f"0 plain) against {cpu['mine_s']:.2f} s on the CPU, stage 2 "
-          f"{run['stage2_s']:.2f} s [{card}]")
+          f"0 plain), stage 2 {run['stage2_s']:.2f} s [{card}]")
     tenant = run["cluster"].tenants[0]
     t0 = time.perf_counter()
     tenant.mine_now()
@@ -1537,8 +1547,75 @@ def cluster_phase(torch, core, ops, ref, card: str) -> dict:
     f_ms, f_n = kernel_total(prof, "frontier_join_kernel")
     print(f"  frontier kernels {f_ms:.3f} ms over {f_n} launches [{card}]")
     return {"launches": launches, "mine_s": run["mine_s"],
-            "cpu_mine_s": cpu["mine_s"], "busy_share": busy,
-            "warm_mine_ms": warm_ms}
+            "busy_share": busy, "warm_mine_ms": warm_ms,
+            "compared": {k: run[k] for k in CLUSTER_COMPARED}}
+
+
+#: what the card's cluster run and the CPU's must give alike
+CLUSTER_COMPARED = ("lats", "agg", "per_shard", "patterns", "col_patterns")
+
+_CLUSTER_CPU = r"""
+import pickle, sys
+import torch
+import chip_smoke
+from repro_torch import core
+from repro_torch.kernels.bitmap_support import ops, ref
+torch.set_num_threads(int(sys.argv[4]))
+(chip_smoke.CLUSTER_SHARDS, chip_smoke.CLUSTER_TENANTS,
+ chip_smoke.CLUSTER_TX) = map(int, sys.argv[1:4])
+run = chip_smoke.cluster_run(torch, core, ops, ref, "cpu")
+sys.stdout.buffer.write(pickle.dumps(
+    {k: run[k] for k in (*chip_smoke.CLUSTER_COMPARED, "mine_s")}))
+"""
+#: the CPU run's torch threads, beside the card's phases on the host
+CLUSTER_CPU_THREADS = 4
+
+
+def in_background(proc: subprocess.Popen) -> subprocess.Popen:
+    """``proc``, killed when this script exits if it still runs."""
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+    atexit.register(stop)
+    return proc
+
+
+def cluster_cpu_start() -> subprocess.Popen:
+    """Phase 10's run on the CPU (``cluster_run`` on ``"cpu"``), in a
+    process of its own from before phase 9: minutes of the host's time,
+    spent beside the card's phases; :func:`cluster_cpu_check` reads it."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _CLUSTER_CPU, str(CLUSTER_SHARDS),
+         str(CLUSTER_TENANTS), str(CLUSTER_TX), str(CLUSTER_CPU_THREADS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=REPO,
+        env={**os.environ,
+             "PYTHONPATH": os.pathsep.join((str(REPO), str(REPO / "src")))})
+
+
+def cluster_cpu_check(proc: subprocess.Popen, cluster: dict,
+                      card: str) -> None:
+    """Phase 10, its CPU half: the same cluster run with every tenant
+    mining on the CPU gives the card's latencies, statistics, per-shard
+    statistics and patterns; its ``mine_all`` wall goes into
+    ``cluster["cpu_mine_s"]``."""
+    import pickle
+
+    stdout, stderr = proc.communicate(timeout=1200)
+    if proc.returncode != 0:
+        raise AssertionError(f"cluster (CPU): the run failed: "
+                             f"{stderr.decode()[-3000:]}")
+    cpu = pickle.loads(stdout)
+    for key in CLUSTER_COMPARED:
+        if cpu[key] != cluster["compared"][key]:
+            raise AssertionError(f"the cluster on the CPU differs from the "
+                                 f"card's in {key}")
+    cluster["cpu_mine_s"] = cpu["mine_s"]
+    print(f"cluster (CPU, beside phases 9-20 in a process of its own): "
+          f"equal to the card's run in latencies, statistics, per-shard "
+          f"statistics and patterns; mine_all {cpu['mine_s']:.2f} s on the "
+          f"CPU against {cluster['mine_s']:.2f} s on the card [{card}]")
 
 
 def prefetcher_phase(torch, core, serving, ops, ref, card: str) -> dict:
@@ -1932,8 +2009,8 @@ class BlockRecorder:
     def __init__(self, apply):
         self.apply, self.calls = apply, []
 
-    def __call__(self, p, cfg, x):
-        y = self.apply(p, cfg, x)
+    def __call__(self, p, cfg, x, **kw):
+        y = self.apply(p, cfg, x, **kw)
         self.calls.append((p, x, y))
         return y
 
@@ -2073,10 +2150,10 @@ def slstm_seconds(torch, cfg, model, batch: dict, max_len: int) -> tuple:
 
     apply, spent = ssm.slstm_apply, []
 
-    def timed(p, c, x):
+    def timed(p, c, x, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = apply(p, c, x)
+        out = apply(p, c, x, **kw)
         torch.cuda.synchronize()
         spent.append(time.perf_counter() - t0)
         return out
@@ -2948,9 +3025,9 @@ def ep_prefill_check(torch, fa_ops, fa_ref, count_tables, families: dict,
 
 def dryrun_start() -> subprocess.Popen:
     """Phase 18 (c)'s dry-run, started in a process of its own (it starts
-    a fake process group) while (a) and (b) hold the card: ``run_cell`` of
-    (a)'s cell on a (1, 1) mesh, then the production cells of
-    ``DRYRUN_ARCHS``."""
+    a fake process group) before phase 17, while the card works:
+    ``run_cell`` of (a)'s cell on a (1, 1) mesh, then the production
+    cells of ``DRYRUN_ARCHS``."""
     return subprocess.Popen(
         [sys.executable, "-c", _DRYRUN, TRAIN_ARCH, str(TRAIN_BATCH),
          str(TRAIN_SEQ), "reference", ",".join(DRYRUN_ARCHS)],
@@ -2992,10 +3069,11 @@ def dryrun_check(proc: subprocess.Popen, held: dict, card: str) -> dict:
 
 
 def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
-                   families: dict, card: str) -> dict:
+                   families: dict, card: str, dry: subprocess.Popen) -> dict:
     """Phase 18: the sharded paths on a one-rank NCCL group started from a
     ``FileStore``, over a (1, 1) mesh: (a) the sharded train step, (b) the
-    EP prefill, (c) the dry-run against the card.  (a) and (b) run the
+    EP prefill, (c) the dry-run (``dry``, from :func:`dryrun_start`)
+    against the card.  (a) and (b) run the
     whole-weight path (``tp.axis_of`` answering None: every weight
     gathered whole at its use, FSDP over both axes), which phase 19's
     tensor-parallel runs are read beside."""
@@ -3009,35 +3087,29 @@ def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
 
     t_phase = time.perf_counter()
     seconds = {}
-    dry = dryrun_start()
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
-            tmp = Path(tmp)
-            backend = init_from_store(dist.FileStore(str(tmp / "store"), 1),
-                                      0, 1, device=DEVICE)
-            try:
-                mesh = make_local_mesh(1, 1, device=DEVICE)
-                print(f"shard: process group {backend}, mesh {mesh}; the "
-                      f"whole-weight path")
-                with mock.patch.object(tp, "axis_of", lambda *a: None):
-                    t0 = time.perf_counter()
-                    out = {"train": sharded_train_check(
-                        torch, training, card, mesh, tmp / "ckpt")}
-                    seconds["a"] = time.perf_counter() - t0
-                    t0 = time.perf_counter()
-                    out["ep"] = ep_prefill_check(torch, fa_ops, fa_ref,
-                                                 count_tables, families,
-                                                 card, mesh)
-                    seconds["b"] = time.perf_counter() - t0
-            finally:
-                dist.destroy_process_group()
-        t0 = time.perf_counter()
-        out["dryrun"] = dryrun_check(dry, out["train"]["held"], card)
-        seconds["c, after (a)-(b)"] = time.perf_counter() - t0
-    finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.communicate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        tmp = Path(tmp)
+        backend = init_from_store(dist.FileStore(str(tmp / "store"), 1),
+                                  0, 1, device=DEVICE)
+        try:
+            mesh = make_local_mesh(1, 1, device=DEVICE)
+            print(f"shard: process group {backend}, mesh {mesh}; the "
+                  f"whole-weight path")
+            with mock.patch.object(tp, "axis_of", lambda *a: None):
+                t0 = time.perf_counter()
+                out = {"train": sharded_train_check(
+                    torch, training, card, mesh, tmp / "ckpt")}
+                seconds["a"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out["ep"] = ep_prefill_check(torch, fa_ops, fa_ref,
+                                             count_tables, families,
+                                             card, mesh)
+                seconds["b"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_check(dry, out["train"]["held"], card)
+    seconds["c, after (a)-(b)"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     print(f"sharding phase: {out['seconds']:.1f} s (" + ", ".join(
         f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
@@ -3051,7 +3123,10 @@ def sharding_phase(torch, fa_ops, fa_ref, count_tables, training: dict,
 #: phase 19 (d): the production cells whose collective bytes are printed,
 #: tensor-parallel beside the whole-weight path: (arch, shape, act_shard)
 TP_DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", None),
-                   ("codeqwen1.5-7b", "prefill_32k", "seq_model"))
+                   ("codeqwen1.5-7b", "prefill_32k", "seq_model"),
+                   ("whisper-large-v3", "prefill_32k", "seq_model"),
+                   ("zamba2-7b", "prefill_32k", "seq_model"),
+                   ("xlstm-1.3b", "train_4k", None))
 
 _TP_DRYRUN = r"""
 import json, sys
@@ -3078,7 +3153,7 @@ print(json.dumps(out))
 
 def tp_dryrun_start() -> subprocess.Popen:
     """Phase 19 (d)'s dry-run, in a process of its own (it starts a fake
-    process group) while (a)-(c) hold the card."""
+    process group) while phases 17-19 (a)-(c) hold the card."""
     cells = ",".join(f"{a}:{s}:{act or ''}" for a, s, act in TP_DRYRUN_CELLS)
     return subprocess.Popen(
         [sys.executable, "-c", _TP_DRYRUN, cells], stdout=subprocess.PIPE,
@@ -3097,6 +3172,12 @@ def tp_dryrun_check(proc: subprocess.Popen) -> dict:
     for cell, r in out.items():
         if r["status"] != "ok":
             raise AssertionError(f"tp (d) {cell}: {r['status']} {r['error']}")
+        if cell.endswith(" whole"):
+            tp_ = out[cell[:-len("whole")] + "tp"]["coll_bytes_per_device"]
+            print(f"tp (d) {cell[:-len(' whole')]}: tensor-parallel "
+                  f"{tp_!r} B of collective operands a rank against the "
+                  f"whole-weight path's {r['coll_bytes_per_device']!r} B "
+                  f"({tp_ / r['coll_bytes_per_device']:.4f}x)")
         kinds = {k: v for k, v in r["coll_breakdown"].items()
                  if not k.startswith("_") and v}
         print(f"tp (d) {cell} on pod16x16: {r['coll_bytes_per_device']!r} B "
@@ -3210,15 +3291,17 @@ def tp_serve_check(torch, fa_ops, fa_ref, count_tables, mesh, requests,
 
 def tensor_parallel_phase(torch, fa_ops, fa_ref, count_tables,
                           training: dict, sharding: dict, families: dict,
-                          requests: list, f32_serve: dict, card: str
-                          ) -> dict:
+                          requests: list, f32_serve: dict, card: str,
+                          dry: subprocess.Popen) -> dict:
     """Phase 19: the ``model`` axis computing, on a one-rank NCCL group
     over a (1, 1) mesh (every collective moves nothing): (a) stablelm's
     ``TrainLoop(mesh=)`` tensor-parallel, beside phase 17's unsharded and
     phase 18's whole-weight step; (b) codeqwen served tensor-parallel;
     (c) qwen3-moe's EP prefill under sequence parallelism
     (``act_shard="seq_model"``), phase 18 (b)'s gates; (d) the dry-run's
-    collective bytes of two production cells, printed."""
+    collective bytes of the production cells of ``TP_DRYRUN_CELLS``,
+    printed, from ``dry`` (:func:`tp_dryrun_start`, started before phase
+    17: its meta passes take minutes of the host's time)."""
     import tempfile
 
     import torch.distributed as dist
@@ -3227,51 +3310,320 @@ def tensor_parallel_phase(torch, fa_ops, fa_ref, count_tables,
 
     t_phase = time.perf_counter()
     seconds = {}
-    dry = tp_dryrun_start()
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-            tmp = Path(tmp)
-            backend = init_from_store(dist.FileStore(str(tmp / "store"), 1),
-                                      0, 1, device=DEVICE)
-            try:
-                mesh = make_local_mesh(1, 1, device=DEVICE)
-                print(f"tp: process group {backend}, mesh {mesh}; the "
-                      f"tensor-parallel path")
-                t0 = time.perf_counter()
-                out = {"train": sharded_train_check(
-                    torch, training, card, mesh, tmp / "ckpt",
-                    label="tp (a)")}
-                fsdp = sharding["train"]
-                print(f"tp (a): step {out['train']['step_s']:.4f} s "
-                      f"(busy {out['train']['busy_share']:.4f}, peak "
-                      f"{out['train']['peak_bytes']} B) against phase 18's "
-                      f"whole-weight step {fsdp['step_s']:.4f} s (busy "
-                      f"{fsdp['busy_share']:.4f}, peak {fsdp['peak_bytes']} "
-                      f"B) and phase 17's unsharded "
-                      f"{fsdp['phase17_step_s']:.4f} s [{card}]")
-                seconds["a"] = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                out["serve"] = tp_serve_check(torch, fa_ops, fa_ref,
-                                              count_tables, mesh, requests,
-                                              f32_serve, card)
-                seconds["b"] = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                out["ep"] = ep_prefill_check(
-                    torch, fa_ops, fa_ref, count_tables, families, card,
-                    mesh, label="tp (c)", act_shard="seq_model")
-                seconds["c"] = time.perf_counter() - t0
-            finally:
-                dist.destroy_process_group()
-        t0 = time.perf_counter()
-        out["dryrun"] = tp_dryrun_check(dry)
-        seconds["d, after (a)-(c)"] = time.perf_counter() - t0
-    finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.communicate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tmp = Path(tmp)
+        backend = init_from_store(dist.FileStore(str(tmp / "store"), 1),
+                                  0, 1, device=DEVICE)
+        try:
+            mesh = make_local_mesh(1, 1, device=DEVICE)
+            print(f"tp: process group {backend}, mesh {mesh}; the "
+                  f"tensor-parallel path")
+            t0 = time.perf_counter()
+            out = {"train": sharded_train_check(
+                torch, training, card, mesh, tmp / "ckpt",
+                label="tp (a)")}
+            fsdp = sharding["train"]
+            print(f"tp (a): step {out['train']['step_s']:.4f} s "
+                  f"(busy {out['train']['busy_share']:.4f}, peak "
+                  f"{out['train']['peak_bytes']} B) against phase 18's "
+                  f"whole-weight step {fsdp['step_s']:.4f} s (busy "
+                  f"{fsdp['busy_share']:.4f}, peak {fsdp['peak_bytes']} "
+                  f"B) and phase 17's unsharded "
+                  f"{fsdp['phase17_step_s']:.4f} s [{card}]")
+            seconds["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["serve"] = tp_serve_check(torch, fa_ops, fa_ref,
+                                          count_tables, mesh, requests,
+                                          f32_serve, card)
+            seconds["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["ep"] = ep_prefill_check(
+                torch, fa_ops, fa_ref, count_tables, families, card,
+                mesh, label="tp (c)", act_shard="seq_model")
+            seconds["c"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out["dryrun"] = tp_dryrun_check(dry)
+    seconds["d, after (a)-(c)"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_phase
     print(f"tensor-parallel phase: {out['seconds']:.1f} s (" + ", ".join(
         f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the model axis computing for audio, ssm and hybrid
+# ---------------------------------------------------------------------------
+
+#: phase 20 (a): whisper-large-v3 at phase 13's batch and prompt, zamba2-7b
+#: and xlstm-1.3b at phases 15-16's, full size in bf16, tensor-parallel
+#: beside the same placed model's whole-weight path, each generating this
+#: many greedy tokens (host-bound decode steps, each run of the three
+#: families' paths paying for them, inside the script's time limit); the
+#: f32 check over as many, at these cuts (whisper 2 + 2 layers; zamba2 a
+#: superblock and a tail block; xlstm a superblock)
+TP_FAMILY_SPECS = ("audio", "hybrid", "ssm")
+TP_SERVE_NEW = 8
+TP_F32_LAYERS = {"audio": 2, "hybrid": 7, "ssm": 8}
+#: on one rank every collective is exact, so the f32 tensor-parallel path
+#: computes the whole-weight path's products in the same order
+TP_F32_TOL = 1e-6
+#: (b) zamba2-7b's TrainLoop(mesh=) at full width, cut to one superblock
+#: (6 Mamba2 blocks and the shared block), batch 2 x 2,048; its f32 loss
+#: at 2 layers (the Mamba2 tail alone) and at 7 (a superblock and a tail
+#: block) against the plain ``loss_fn``, batch 2 x 512
+TP_TRAIN_ARCH, TP_TRAIN_LAYERS = "zamba2-7b", 6
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 2, 2048
+TP_TRAIN_F32_LAYERS = (2, 7)
+
+
+def tp_family_spec(name: str) -> FamilyPhase:
+    return next(s for s in FAMILY_PHASES + SSM_PHASES if s.name == name)
+
+
+def placed_model(torch, cfg, mesh, training: bool = False):
+    """``cfg``'s weights from seed 0 on the card, placed on ``mesh`` by the
+    reference's specs (inference or training)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.sharding import place, rules
+
+    model = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        device=DEVICE)
+    return place.distribute_model(model, rules.param_specs(
+        cfg, param_shapes(cfg), mesh, training=training), mesh)
+
+
+def tp_family_serve(torch, fa_ops, fa_ref, count_tables, spec: FamilyPhase,
+                    mesh, card: str) -> dict:
+    """Phase 20 (a), one family: the model placed by the inference specs
+    at full size in bf16, ``prefill`` (its cache placed by
+    ``cache_pspec``) and greedy ``decode_step``s at its serving phase's
+    batch and lengths, tensor-parallel, then the same placed model's
+    whole-weight path (``tp.axis_of`` answering None) timed beside, each
+    ``TP_SERVE_NEW`` greedy tokens.  Every
+    prefill attention on the tensor-core flash kernel (``spec.launches``),
+    never the split-TF32 one or the plain version; the bf16 gate of
+    :func:`bf16_logits_gate` where the family has attention; in f32 at
+    ``TP_F32_LAYERS``, greedy tokens and last-position logits equal to
+    the whole-weight path's within ``TP_F32_TOL``."""
+    from unittest import mock
+
+    from repro_torch.models import decode_step, make_batch, prefill
+    from repro_torch.sharding import place, tp
+
+    audio = spec.name == "audio"
+    rows, new = FAMILY_BATCH if audio else SERVE_BATCH, TP_SERVE_NEW
+    label = f"tp family (a) {spec.name}"
+    cfg = family_cfg(spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = placed_model(torch, cfg, mesh)
+    if tp.axis_of(cfg, model.parameters()) is None:
+        raise AssertionError(f"{label}: the placed model is not "
+                             f"tensor-parallel")
+    batch = make_batch(cfg, rows, spec.seq_len, seed=0, device=DEVICE)
+    max_len = spec.seq_len + new
+    reset_counts(*count_tables)
+    toks, cold_pre, _ = greedy_on_card(torch, cfg, model, batch, new,
+                                       max_len)
+    counted = counts_now(fa_ops, fa_ref)
+    want = {"flash_attention": spec.launches, "tensor_core": spec.launches,
+            "tf32x3": 0}
+    if counted["kernel"] != want or any(counted["plain"].values()):
+        raise AssertionError(f"{label}: the prefill did not launch the "
+                             f"tensor-core flash kernel, and only it, "
+                             f"{spec.launches} times: {counted}")
+    warm, pre_s, dec_s = greedy_on_card(torch, cfg, model, batch, new,
+                                        max_len)
+    if not np.array_equal(warm, toks) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: bad or unsteady greedy tokens")
+    peak = torch.cuda.max_memory_allocated()
+    cache = prefill(cfg, model, batch, max_len)[1]
+    where = {k: str(v.placements) for k, v in cache.items()
+             if place.is_dtensor(v)}
+    tok = torch.as_tensor(toks[:, :1], dtype=torch.int64, device=DEVICE)
+    print(f"{label}: profile of one decode step (warm, at position "
+          f"{cache['pos']}):")
+    _, busy = profiled(torch, lambda: decode_step(cfg, model, cache, tok))
+    del cache
+    with mock.patch.object(tp, "axis_of", lambda *a: None):
+        whole, w_pre, w_dec = greedy_on_card(torch, cfg, model, batch, new,
+                                             max_len)
+    same = int((whole == toks).sum())
+    print(f"{label}: {cfg.name} on (1, 1), {rows} x {spec.seq_len} + {new}: "
+          f"tensor-parallel prefill {pre_s:.4f} s warm ({cold_pre:.4f} s "
+          f"cold), decode {rows * new / dec_s:.1f} tok/s, decode busy share "
+          f"{busy:.4f}, max_memory_allocated {peak} B; whole-weight path "
+          f"prefill {w_pre:.4f} s, decode {rows * new / w_dec:.1f} tok/s; "
+          f"bf16 greedy tokens equal {same} of {toks.size}; {counted} "
+          f"[{card}]")
+    print(f"{label}: the cache placed by cache_pspec: {where}")
+    gate = None
+    if spec.launches:
+        gate = bf16_logits_gate(torch, fa_ref, cfg, model, batch, max_len,
+                                label, full=True)
+    del model
+    torch.cuda.empty_cache()
+
+    layers = TP_F32_LAYERS[spec.name]
+    f32 = family_cfg(spec, n_layers=layers, dtype="float32",
+                     **({"encoder_layers": layers} if audio else {}))
+    model = placed_model(torch, f32, mesh)
+    reset_counts(fa_ops.counts)
+    got = {}
+    for path in ("tp", "whole"):
+        with mock.patch.object(tp, "axis_of", (lambda *a: None)
+                               if path == "whole" else tp.axis_of):
+            logits, cache = prefill(f32, model, batch, max_len)
+            first, toks = logits, []
+            for _ in range(new):
+                toks.append(logits[:, -1].argmax(-1, keepdim=True))
+                logits, cache = decode_step(f32, model, cache, toks[-1])
+        got[path] = (first, torch.cat(toks, dim=1).cpu().numpy())
+        del cache
+    launched = dict(fa_ops.counts)
+    diff = float((got["tp"][0] - got["whole"][0]).abs().max())
+    same = int((got["tp"][1] == got["whole"][1]).sum())
+    print(f"{label} f32, {layers} layers at full width: "
+          f"tensor-parallel last-position logits against the whole-weight "
+          f"path's max abs diff {diff:.3e} (tol {TP_F32_TOL:g}); greedy "
+          f"tokens equal {same} of {got['tp'][1].size}; "
+          f"{launched['tf32x3']} split-TF32 launches")
+    if diff > TP_F32_TOL or same != got["tp"][1].size:
+        raise AssertionError(f"{label} f32: the tensor-parallel path "
+                             f"differs from the whole-weight path")
+    del model, got
+    torch.cuda.empty_cache()
+    return {"launches": counted["kernel"]["tensor_core"], "prefill_s": pre_s,
+            "tok_s": rows * new / dec_s, "decode_busy_share": busy,
+            "peak_bytes": peak, "gate": gate, "cache": where,
+            "whole_weight": {"prefill_s": w_pre, "tok_s": rows * new / w_dec},
+            "f32": {"logits_max_abs_diff": diff,
+                    "launches": launched["tf32x3"]}}
+
+
+def tp_family_train(torch, mesh, card: str, tmp: Path) -> dict:
+    """Phase 20 (b): zamba2-7b's ``TrainLoop(mesh=)`` at full width cut
+    to ``TP_TRAIN_LAYERS`` in bf16, tensor-parallel (the Mamba2 mixers,
+    the shared block and the vocabulary-parallel cross entropy): its first
+    loss within ``SHARD_LOSS_RTOL`` of the same loop unplaced, its warm
+    step's seconds, peak memory and busy share; then in f32 the placed
+    loss against the plain ``loss_fn`` within ``SHARD_F32_RTOL``."""
+    from repro_torch import configs
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models import init_params, loss_fn, make_batch
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.sharding import place, rules, tp
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_step import mesh_loss
+
+    cfg = dataclasses.replace(configs.get_config(TP_TRAIN_ARCH),
+                              n_layers=TP_TRAIN_LAYERS)
+    losses = {}
+    for path, m in (("plain", None), ("tp", mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(cfg, batch=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ,
+                         ckpt_dir=tmp / path, opt_cfg=OptConfig(**TRAIN_OPT),
+                         save_every=10 ** 9, device=DEVICE, mesh=m)
+        fixed = loop.pipeline.batch_at(0)
+        loop.pipeline.batch_at = lambda step: fixed
+        loop.save_now = lambda step: None
+        loop.init_or_restore()
+        model, opt = loop.state
+        if m is not None and tp.axis_of(cfg, model.parameters()) is None:
+            raise AssertionError("tp family (b): not tensor-parallel")
+        losses[path] = loop.run(1, log_every=1)
+        if m is None:
+            del loop, model, opt
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[path] += loop.run(3, log_every=1)     # steps 1 and 2
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 2
+        peak = torch.cuda.max_memory_allocated()
+        batch = {"tokens": torch.as_tensor(fixed["tokens"], device=DEVICE)}
+        print("tp family (b): profile of one tensor-parallel train step "
+              "(warm):")
+        _, busy = profiled(torch, lambda: loop.train_step(model, opt, batch))
+        del loop, model, opt
+        torch.cuda.empty_cache()
+    rel = abs(losses["tp"][0] - losses["plain"][0]) / abs(losses["plain"][0])
+    print(f"tp family (b): {cfg.name} at full width, {cfg.n_layers} layers, "
+          f"batch {TP_TRAIN_BATCH} x {TP_TRAIN_SEQ}, TrainLoop on (1, 1) "
+          f"tensor-parallel: losses {losses['tp']}; first loss against the "
+          f"unplaced loop's {losses['plain'][0]!r}: relative difference "
+          f"{rel:.3e} (tol {SHARD_LOSS_RTOL:g}); warm step {step_s:.4f} s, "
+          f"busy share {busy:.4f}, max_memory_allocated {peak} B [{card}]")
+    if rel > SHARD_LOSS_RTOL or not losses["tp"][-1] < losses["tp"][0]:
+        raise AssertionError("tp family (b): the tensor-parallel loss "
+                             "differs from the unplaced loop's, or did not "
+                             "fall")
+    f32_rel = {}
+    for layers in TP_TRAIN_F32_LAYERS:
+        f32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+        model = init_params(f32, torch.Generator(device=DEVICE)
+                            .manual_seed(0), device=DEVICE)
+        batch = make_batch(f32, SHARD_F32_BATCH, SHARD_F32_SEQ, seed=0,
+                           device=DEVICE)
+        with torch.no_grad():
+            want = float(loss_fn(f32, model, batch)[0])
+            place.distribute_model(model, rules.param_specs(
+                f32, param_shapes(f32), mesh), mesh)
+            got = float(mesh_loss(f32, model, batch, mesh))
+        f32_rel[layers] = abs(got - want) / abs(want)
+        print(f"tp family (b) f32, {layers} layers at full width, batch "
+              f"{SHARD_F32_BATCH} x {SHARD_F32_SEQ}: tensor-parallel loss "
+              f"{got!r}, plain {want!r}, relative difference "
+              f"{f32_rel[layers]:.3e} (tol {SHARD_F32_RTOL:g})")
+        del model
+        torch.cuda.empty_cache()
+        if f32_rel[layers] > SHARD_F32_RTOL:
+            raise AssertionError("tp family (b) f32: the tensor-parallel "
+                                 "loss differs")
+    return {"losses": losses, "loss_rel": rel, "step_s": step_s,
+            "peak_bytes": peak, "busy_share": busy, "f32_loss_rel": f32_rel}
+
+
+def family_tp_phase(torch, fa_ops, fa_ref, count_tables, card: str) -> dict:
+    """Phase 20: the ``model`` axis computing for audio, ssm and hybrid,
+    on a one-rank NCCL group over a (1, 1) mesh: (a) whisper-large-v3,
+    zamba2-7b and xlstm-1.3b served tensor-parallel beside their
+    whole-weight path; (b) zamba2-7b's tensor-parallel train step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_from_store, make_local_mesh
+
+    t_phase = time.perf_counter()
+    seconds, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tpf_") as tmp:
+        tmp = Path(tmp)
+        backend = init_from_store(dist.FileStore(str(tmp / "store"), 1), 0,
+                                  1, device=DEVICE)
+        try:
+            mesh = make_local_mesh(1, 1, device=DEVICE)
+            print(f"tp family: process group {backend}, mesh {mesh}")
+            for name in TP_FAMILY_SPECS:
+                t0 = time.perf_counter()
+                out[name] = tp_family_serve(torch, fa_ops, fa_ref,
+                                            count_tables,
+                                            tp_family_spec(name), mesh, card)
+                seconds[f"a {name}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["train"] = tp_family_train(torch, mesh, card, tmp / "ckpt")
+            seconds["b"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"tensor-parallel families phase: {out['seconds']:.1f} s (" +
+          ", ".join(f"({k}) {v:.1f} s" for k, v in seconds.items()) + ")")
     return out
 
 
@@ -3655,6 +4007,10 @@ def main(argv=None) -> int:
     # -- phase 8: flash timing at the prefill shape -----------------------
     flash = flash_timing(torch, fa_ops, fa_ref, fparity, serve_cfg, card)
 
+    # phase 10's CPU run takes minutes of the host's time: it runs in a
+    # process of its own beside the card's phases, read after phase 20
+    cluster_cpu = in_background(cluster_cpu_start())
+
     # -- phase 9: the decision walk on the card ----------------------------
     t0 = time.perf_counter()
     decision = decision_phase(torch, core, client, stage2, card)
@@ -3683,22 +4039,33 @@ def main(argv=None) -> int:
         ssm_families[spec.name] = ssm_phase(torch, fa_ops, fa_ref,
                                             count_tables, spec, card)
         phase_s[spec.name] = ssm_families[spec.name]["seconds"]
+    # phases 18 (c) and 19 (d)'s dry-runs run on the host beside phases
+    # 17-19
+    dry = in_background(dryrun_start())
+    tp_dry = in_background(tp_dryrun_start())
     # -- phase 17: training stablelm-1.6b --------------------------------
     training = train_phase(torch, fa_ops, fa_ref, count_tables, card)
     phase_s["training"] = training["seconds"]
     # -- phase 18: sharding and launch on torch.distributed ---------------
     sharding = sharding_phase(torch, fa_ops, fa_ref, count_tables, training,
-                              families, card)
+                              families, card, dry)
     phase_s["sharding"] = sharding["seconds"]
     # -- phase 19: the model axis computing ---------------------------------
     tensor_parallel = tensor_parallel_phase(
         torch, fa_ops, fa_ref, count_tables, training, sharding, families,
-        serve_requests, f32_serve, card)
+        serve_requests, f32_serve, card, tp_dry)
     phase_s["tensor_parallel"] = tensor_parallel["seconds"]
-    print("phases 9-19 seconds: " + ", ".join(
+    # -- phase 20: the model axis computing for audio, ssm and hybrid -------
+    tp_families = family_tp_phase(torch, fa_ops, fa_ref, count_tables, card)
+    phase_s["tensor_parallel_families"] = tp_families["seconds"]
+    print("phases 9-20 seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in phase_s.items()))
+    t0 = time.perf_counter()
+    cluster_cpu_check(cluster_cpu, cluster, card)
+    print(f"phase 10's CPU run read after {time.perf_counter() - t0:.1f} s "
+          f"of waiting")
 
-    # -- phase 20: the kernels line and the result ------------------------
+    # -- phase 21: the kernels line and the result ------------------------
     launches = {"frontier_join_support": ("main", main_counts),
                 "sstep_join_support": ("spill", spill_counts)}
     replaces = {"frontier_join_support": f"{TPU_KERNELS}:135",
@@ -3768,7 +4135,10 @@ def main(argv=None) -> int:
         **{name: fam["launches"] for name, fam in serving.items()},
         "moe_ep": ep["launches"]}, tp_launches={
         "codeqwen": tp_["serve"]["launches"],
-        "moe_ep_seq_model": tp_["ep"]["launches"]},
+        "moe_ep_seq_model": tp_["ep"]["launches"],
+        **{name: tp_families[name]["launches"] for name in TP_FAMILY_SPECS}},
+        tp_family_prefill_s={name: tp_families[name]["prefill_s"]
+                             for name in TP_FAMILY_SPECS},
         tp_prefill_s=tp_["serve"]["prefill_s"],
         tp_gate_mean_ratio=tp_["serve"]["gate"]["mean_ratio"],
         tp_moe_ep_seq_model_prefill_s=tp_["ep"]["prefill_s"],
@@ -3797,7 +4167,9 @@ def main(argv=None) -> int:
             **{name: fam["f32"]["launches"] for name, fam in serving.items()},
             "moe_ep": ep["f32"]["launches"]},
         tp_f32_launches={"codeqwen": tp_["serve"]["f32"]["launches"],
-                         "moe_ep_seq_model": tp_["ep"]["f32"]["launches"]},
+                         "moe_ep_seq_model": tp_["ep"]["f32"]["launches"],
+                         **{name: tp_families[name]["f32"]["launches"]
+                            for name in TP_FAMILY_SPECS}},
         f32_family_logits_max_abs_diff={
             **{name: fam["f32"]["logits_max_abs_diff"]
                for name, fam in serving.items()},

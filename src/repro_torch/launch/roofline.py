@@ -21,7 +21,10 @@ of ``sharding.tp`` on the ``model`` axis, the MoE's all-to-alls) on the
 ``meta`` device under a fake process group of the mesh's size, at one
 and at two units of depth (a layer; an sLSTM or attention superblock for
 ssm and hybrid), counts each collective and its operand bytes on rank 0,
-and extrapolates linearly to the config's depth.  Where an op of the pass cannot run on
+and extrapolates linearly to the config's depth.  A tensor-parallel pass
+of ssm or hybrid, whose mixers loop over chunks (and the sLSTM over
+tokens) in Python, is counted at two short lengths and extrapolated
+linearly to the shape's, as its depth is.  Where an op of the pass cannot run on
 the meta device, the term is reported unavailable with the reason,
 never invented.
 """
@@ -123,7 +126,8 @@ def _depth(cfg, k: int):
     return dataclasses.replace(cfg, **over), cfg.n_layers / unit
 
 
-#: the sequence of a non-MoE pass (see ``_one_pass``)
+#: the sequence of a non-MoE pass (see ``_one_pass``), and the shorter of
+#: the two a recurrent tensor-parallel pass is counted at (``_counted``)
 _SHORT_SEQ = 256
 
 
@@ -139,12 +143,10 @@ def _one_pass(cfg, shape, mesh, specs: dict, batch_spec: dict) -> tuple:
     the meta device at 32k."""
     from ..models import transformer
     from ..models.io import batch_specs, place_cache
-    from ..sharding import place, tp
-    from ..sharding.rules import model_role
+    from ..sharding import place
     from ..training.train_step import mesh_loss
 
-    computes_tp = cfg.family in tp.FAMILIES and any(
-        model_role(n, s) for n, s in specs.items())
+    computes_tp = _computes_tp(specs)
     if not cfg.is_moe and not computes_tp and shape.kind != "decode":
         # weights only: the collectives do not depend on the sequence
         shape = dataclasses.replace(
@@ -180,6 +182,30 @@ def _one_pass(cfg, shape, mesh, specs: dict, batch_spec: dict) -> tuple:
     return dict(mode.bytes), dict(mode.ops)
 
 
+def _computes_tp(specs: dict) -> bool:
+    """Some weight computes on its ``model`` block (``tp.axis_of``)."""
+    from ..sharding.rules import model_role
+
+    return any(model_role(n, s) for n, s in specs.items())
+
+
+def _counted(cfg, shape, mesh, specs: dict, batch_spec: dict) -> tuple:
+    """:func:`_one_pass`; for a tensor-parallel train or prefill pass of
+    ssm or hybrid, whose activations' collectives grow with the sequence,
+    counted at ``_SHORT_SEQ`` and twice that and extrapolated linearly to
+    the shape's length: the meta device would take minutes over the
+    token-by-token sLSTM and the chunk loops at 32k."""
+    two = 2 * _SHORT_SEQ
+    if (cfg.family not in ("ssm", "hybrid") or shape.kind == "decode"
+            or shape.seq_len <= two or not _computes_tp(specs)):
+        return _one_pass(cfg, shape, mesh, specs, batch_spec)
+    lo, hi = (_one_pass(cfg, dataclasses.replace(shape, seq_len=n), mesh,
+                        specs, batch_spec) for n in (_SHORT_SEQ, two))
+    f = (shape.seq_len - _SHORT_SEQ) / (two - _SHORT_SEQ)
+    return tuple({k: a.get(k, 0) + (b.get(k, 0) - a.get(k, 0)) * f
+                  for k in set(a) | set(b)} for a, b in zip(lo, hi))
+
+
 def collectives(cfg, shape, mesh, param_spec_fn, batch_spec: dict) -> dict:
     """``{"bytes": {kind: bytes}, "ops": {kind: n}}`` a rank moves in
     one step of ``cfg`` at its depth, or ``{"unavailable": reason}``.
@@ -188,8 +214,8 @@ def collectives(cfg, shape, mesh, param_spec_fn, batch_spec: dict) -> dict:
         counts = []
         for k in (1, 2):
             cut, units = _depth(cfg, k)
-            counts.append(_one_pass(cut, shape, mesh, param_spec_fn(cut),
-                                    batch_spec))
+            counts.append(_counted(cut, shape, mesh, param_spec_fn(cut),
+                                   batch_spec))
     except Exception as e:  # an op with no meta kernel or DTensor rule
         return {"unavailable": f"{type(e).__name__}: {e}"[:300]}
     out = {}

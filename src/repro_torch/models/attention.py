@@ -18,18 +18,21 @@ prefill path:
 Decode stays on the plain path, as in the reference.
 
 With ``tp`` (the mesh's ``model`` axis, :mod:`repro_torch.sharding.tp`)
-and ``wo`` row-sharded there, self-attention is head-parallel: each rank
-computes the query heads its rows of ``wo`` need
+and ``wo`` row-sharded there, attention (self, encoder and cross) is
+head-parallel: each rank computes the query heads its rows of ``wo`` need
 (:func:`~repro_torch.sharding.tp.head_plan`) and the key/value heads
 they read, from its column blocks of ``wq``/``wk``/``wv``; a projection
 sharded inside heads (GQA with fewer key/value heads than ranks) is
 all-gathered over the axis and the rank takes its heads.  The partial
 ``wo`` product is all-reduced, or reduce-scattered along the sequence
 under ``seq`` (sequence parallelism: ``x`` is then this rank's block of
-the sequence, gathered at entry).  Decode reads a cache block placed by
+the sequence, gathered at entry; so is a cross attention's source under
+``kv_seq``).  Decode reads a cache block placed by
 ``rules.cache_pspec``: its heads (``cache_dim`` 2), its block of the
 sequence (``cache_dim`` 1: each rank attends over its block and the
-softmax's max and sums are all-reduced), or all of it (None).
+softmax's max and sums are all-reduced), or all of it (None); so does
+the cross attention of a decode step (:func:`cross_decode_attention`),
+on the cached encoder keys and values.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from ..sharding import place, tp
 from .blocked_attention import blocked_attention
 from .layers import Params, dense_init, raw, rope
 
-__all__ = ["attn_init", "attention", "decode_attention", "init_layer_cache"]
+__all__ = ["attn_init", "attention", "cross_decode_attention",
+           "decode_attention", "init_layer_cache"]
 
 
 def attn_init(generator: torch.Generator, cfg, dtype,
@@ -69,22 +73,25 @@ def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int
 def attention(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True, kv_x: Optional[torch.Tensor] = None,
               use_rope: bool = True, t: Optional[tp.TP] = None,
-              seq: bool = False):
+              seq: bool = False, kv_seq: bool = False):
     """Full-sequence attention (prefill / encoder / cross).
 
     x: (B, S, D).  kv_x: the source of k/v (cross-attention), or None
     (self).  Returns (out (B, S, D), (k, v) heads (B, Sk, Hkv, hd) for the
     cache).  With ``t``, tensor-parallel (see the module's docstring):
     ``x`` and ``out`` are this rank's block of the sequence under
-    ``seq``, and (k, v) hold the heads of this rank's cache block where
-    its heads divide the axis, else every head.
+    ``seq``, ``kv_x`` its block of the source's under ``kv_seq``, and
+    (k, v) hold the heads of this rank's cache block where its heads
+    divide the axis, else every head.
     """
-    if kv_x is None and tp.sharded(t, raw(p, "wo"), 0):
+    if tp.sharded(t, raw(p, "wo"), 0):
         return _tp_attention(p, cfg, x, positions, t, seq, causal=causal,
-                             use_rope=use_rope)
+                             use_rope=use_rope, kv_x=kv_x, kv_seq=kv_seq)
     # the weights whole on every rank: a sequence block is gathered first
     if seq:
         x = tp.gather(x, 1, t)
+    if kv_seq:
+        kv_x = tp.gather(kv_x, 1, t)
     out, kv = _whole_attention(p, cfg, x, positions, causal=causal,
                                kv_x=kv_x, use_rope=use_rope)
     return (tp.split(out, 1, t) if seq else out), kv
@@ -143,20 +150,26 @@ def _heads(p, name: str, x: torch.Tensor, n_heads: int, hd: int,
 
 
 def _tp_attention(p, cfg, x, positions, t: tp.TP, seq: bool, *,
-                  causal: bool, use_rope: bool):
-    """Head-parallel self-attention on this rank (module docstring)."""
+                  causal: bool, use_rope: bool, kv_x=None,
+                  kv_seq: bool = False):
+    """Head-parallel attention on this rank (module docstring); a cross
+    attention's source ``kv_x`` enters as ``x`` does."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     plan = tp.head_plan(hq, hkv, hd, t.n, t.i)
     xin = tp.gather_sum(x, 1, t) if seq else tp.copy_to(x, t)
+    src = xin if kv_x is None else (
+        tp.gather_sum(kv_x, 1, t) if kv_seq else tp.copy_to(kv_x, t))
     b, s, _ = xin.shape
     q, _ = _heads(p, "wq", xin, hq, hd, plan.q0, plan.q1, t)
-    k, k_all = _heads(p, "wk", xin, hkv, hd, plan.kv0, plan.kv1, t)
-    v, v_all = _heads(p, "wv", xin, hkv, hd, plan.kv0, plan.kv1, t)
+    k, k_all = _heads(p, "wk", src, hkv, hd, plan.kv0, plan.kv1, t)
+    v, v_all = _heads(p, "wv", src, hkv, hd, plan.kv0, plan.kv1, t)
     if use_rope:
+        kv_pos = positions if kv_x is None else torch.arange(
+            src.shape[1], device=src.device)[None]
         q = rope(q, positions, cfg.rope_theta)
-        k_all = None if k_all is None else rope(k_all, positions,
+        k_all = None if k_all is None else rope(k_all, kv_pos,
                                                 cfg.rope_theta)
-        k = (rope(k, positions, cfg.rope_theta) if k_all is None
+        k = (rope(k, kv_pos, cfg.rope_theta) if k_all is None
              else k_all[:, :, plan.kv0:plan.kv1])
     if plan.kv_index is not None:
         index = torch.as_tensor(plan.kv_index, device=x.device)
@@ -279,6 +292,35 @@ def _tp_decode_attention(p, cfg, x, k_cache, v_cache, pos: int,
     out = out[..., plan.c0:plan.c1] @ place.local(raw(p, "wo"),
                                                   keep_model=True)
     return tp.reduce_from(out, t), k_cache, v_cache
+
+
+def cross_decode_attention(p, cfg, x: torch.Tensor, xk: torch.Tensor,
+                           xv: torch.Tensor, *, t: Optional[tp.TP] = None,
+                           cache_dim: Optional[int] = None) -> torch.Tensor:
+    """One decode step's cross attention: x (B, 1, D) against the cached
+    encoder keys and values xk/xv (B, Sk, Hkv, hd), which it does not
+    update.  With ``t`` and ``wo`` row-sharded, xk/xv are this rank's
+    block of a cache placed by ``rules.cache_pspec`` on ``cache_dim``, as
+    :func:`decode_attention` reads its own."""
+    hq, hd = cfg.n_heads, cfg.head_dim
+    b, s, _ = x.shape
+    if not tp.sharded(t, raw(p, "wo"), 0):
+        q = _split_heads(x @ p["wq"], hq, hd)
+        out = _reference_attention(q, xk, xv, causal=False)
+        return out.reshape(b, s, hq * hd) @ p["wo"]
+    plan = tp.head_plan(hq, cfg.n_kv_heads, hd, t.n, t.i)
+    if cache_dim == 2:
+        q, _ = _heads(p, "wq", x, hq, hd, plan.q0, plan.q1, t)
+        out = _reference_attention(q, xk, xv, causal=False)
+    else:
+        _, q = _heads(p, "wq", x, hq, hd, 0, hq, t, whole=True)
+        out = (_seq_block_attention(q, xk, xv, xk.shape[1], t)
+               if cache_dim == 1 else
+               _reference_attention(q, xk, xv, causal=False))
+        out = out[:, :, plan.q0:plan.q1]
+    out = out.reshape(b, s, -1)[..., plan.c0:plan.c1] @ place.local(
+        raw(p, "wo"), keep_model=True)
+    return tp.reduce_from(out, t)
 
 
 def _seq_block_attention(q, k_cache, v_cache, valid: int, t: tp.TP

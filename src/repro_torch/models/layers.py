@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, initializers, SwiGLU MLP.
+"""Shared building blocks: norms, RoPE, initializers, SwiGLU and GELU
+MLPs.
 
 The port of ``src/repro/models/layers.py``.  Weights keep the
 reference's ``(in, out)`` orientation (``x @ w``), and the casts stay
@@ -160,8 +161,9 @@ def swiglu_mlp(p, x: torch.Tensor, t: Optional[tp.TP] = None,
                 ("w1", "w3"), t, seq)
 
 
-def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation; whisper's, whose
-    # weights stay whole on every rank
+def gelu_mlp(p, x: torch.Tensor, t: Optional[tp.TP] = None,
+             seq: bool = False) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation; whisper's, whose d_ff
+    # splits over the model axis as swiglu_mlp's does
     return _mlp(p, x, lambda w, x: F.gelu(x @ w["w1"], approximate="tanh"),
-                ("w1",), None, False)
+                ("w1",), t, seq)

@@ -16,6 +16,43 @@ chunks a (dk × dv) f32 state is carried.  Gates live in log space and
 them: the chunk products run in f32 and :func:`chunked_gla` returns
 ``v``'s dtype, so a bf16 model rounds the mixer's output to bf16 where
 the reference does.
+
+Tensor parallelism.  With ``t`` (the mesh's ``model`` axis,
+:mod:`repro_torch.sharding.tp`) and the block's projections placed
+column- and row-parallel there by the reference's specs, each mixer
+computes what XLA makes of those specs: the normalised input enters by
+``copy_to`` (under ``seq``, this rank's block of the sequence, by
+``gather_sum``: the recurrence needs the whole sequence), the rank
+computes its block of the inner width and the heads it covers, and the
+row-parallel down-projection leaves by ``reduce_from``
+(``reduce_scatter``).
+
+* mLSTM: ``wu``, ``wz``, ``wq``, ``wk``, ``wv`` column-parallel, ``wo``
+  row-parallel.  u is gathered (``wq``/``wk``/``wv`` read all of it),
+  q, k and v are the rank's heads, the replicated gates ``wi``/``wf``
+  are computed whole and sliced to them; z's block is h's.
+* sLSTM: ``w`` column-parallel, ``wo`` row-parallel.  The recurrent
+  ``r`` is replicated and the carry a small replicated state
+  (``rules.cache_pspec``), so the time loop runs alike on every rank on
+  ``w``'s product gathered whole, and the rank takes its columns of the
+  loop's output into ``wo``.  That is what the reference's specs imply;
+  the loop is no faster for it.
+* Mamba2: ``w_in`` column-parallel ([u | z] by contiguous blocks, moved
+  to the rank's block of each by ``tp.part_blocks``), ``conv`` sharded
+  on its channels (and its state with it), ``w_out`` row-parallel; the
+  replicated ``wb``/``wc``/``wdt`` computed whole (k and q are shared
+  across heads); the gated norm ``gn`` over all of Di sums its squares
+  locally and all-reduces them (``tp.mean_squares``).
+
+Where the heads do not divide the axis (xlstm's 4 heads at |model| 16,
+or 2 at 4) a rank's columns cut a head: it computes the heads its
+columns need (``tp.head_plan``) on q, k and v gathered over the axis,
+and takes its columns of the output, so no reshape to (B, S, H, dh)
+ever cuts a head.  A decode step on a state held whole (its heads do not
+divide the axis) computes every head, so the state stays whole and
+alike.  A replicated weight that each rank uses on its own heads takes
+a gradient summed over the axis; one used alike (``r``, the sLSTM's
+bias) does not.
 """
 
 from __future__ import annotations
@@ -25,7 +62,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, dense_init, init_device, norm_apply, norm_init
+from ..sharding import place, tp
+from .layers import (Params, dense_init, init_device, norm_apply, norm_init,
+                     raw)
 
 __all__ = [
     "MLSTMBlock", "SLSTMBlock", "Mamba2Block",
@@ -194,21 +233,67 @@ def _with_ones(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([v, ones], dim=-1)
 
 
-def mlstm_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D) (residual included)."""
+def mlstm_apply(p, cfg, x: torch.Tensor, t: Optional[tp.TP] = None,
+                seq: bool = False) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D) (residual included); with ``t``,
+    tensor-parallel (module docstring), ``x`` this rank's block of the
+    sequence under ``seq``."""
+    if _computes_tp(p, t, _MLSTM_TP):
+        return _mlstm_tp(_tp_weights(p, t, seq), cfg, x, t, seq)[0]
+    return tp.whole(lambda x: _mlstm_whole(p, cfg, x), x, t, seq)
+
+
+def _mlstm_whole(p, cfg, x: torch.Tensor) -> torch.Tensor:
     q, k, v, log_f, log_i, z = _mlstm_qkv(p, cfg, x)
     out, _ = chunked_gla(q, k, _with_ones(v), log_f, log_i, cfg.ssm_chunk)
     h_mix, den = out[..., :-1].float(), out[..., -1].float()
     return _mlstm_out(p, h_mix, den, z, x)
 
 
-def mlstm_decode(p, cfg, x: torch.Tensor, state: torch.Tensor):
-    """x: (B, 1, D); state: (B, H, dk, dv+1).  Returns (y, new_state)."""
+def mlstm_decode(p, cfg, x: torch.Tensor, state: torch.Tensor,
+                 t: Optional[tp.TP] = None):
+    """x: (B, 1, D); state: (B, H, dk, dv+1), this rank's heads of a
+    state placed by ``rules.cache_pspec`` with ``t``.  Returns (y,
+    new_state)."""
+    if _computes_tp(p, t, _MLSTM_TP):
+        return _mlstm_tp(_tp_weights(p, t, False), cfg, x, t, False,
+                         state=state)
     q, k, v, log_f, log_i, z = _mlstm_qkv(p, cfg, x)
     h, state = gla_decode_step(state, q[:, 0], k[:, 0], _with_ones(v)[:, 0],
                                log_f[:, 0], log_i[:, 0])
     h = h[:, None]                                 # (B, 1, H, dv+1)
     return _mlstm_out(p, h[..., :-1], h[..., -1], z, x), state
+
+
+def _mlstm_tp(w: dict, cfg, x: torch.Tensor, t: tp.TP, seq: bool,
+              state: Optional[torch.Tensor] = None):
+    """The mLSTM on this rank (module docstring), its weights ``w`` as
+    :func:`_tp_weights` reads them: the full sequence (``state`` None) or
+    one decode step from ``state``.  Returns (y, new_state or None)."""
+    h = cfg.n_heads
+    xin = _tp_enter(norm_apply(w["ln"], x, cfg.norm), t, seq)
+    b, s, _ = xin.shape
+    z = xin @ w["wz"]                              # this rank's columns
+    dh = z.shape[-1] * t.n // h
+    plan = _mixer_plan(h, dh, t, state)
+    u = tp.gather_sum(xin @ w["wu"], -1, t)
+    q = _head_block(u @ w["wq"], plan, dh, t)
+    k = _head_block(u @ w["wk"], plan, dh, t) * (dh ** -0.5)
+    v = _with_ones(_head_block(u @ w["wv"], plan, dh, t))
+    xf = xin.float()
+    heads = slice(plan.q0, plan.q1)
+    log_f = F.logsigmoid(xf @ w["wf"] + w["bf"])[..., heads]
+    log_i = (xf @ w["wi"] + w["bi"])[..., heads]
+    if state is None:
+        out, _ = chunked_gla(q, k, v, log_f, log_i, cfg.ssm_chunk)
+    else:
+        out, state = gla_decode_step(state, q[:, 0], k[:, 0], v[:, 0],
+                                     log_f[:, 0], log_i[:, 0])
+        out = out[:, None]
+    h_mix, den = out[..., :-1].float(), out[..., -1].float()
+    hm = (h_mix / den.abs().clamp(min=1.0)[..., None]).reshape(b, s, -1)
+    hm = hm[..., plan.c0:plan.c1].to(x.dtype)
+    return x + _tp_leave((hm * F.silu(z)) @ w["wo"], t, seq), state
 
 
 def mlstm_state_shape(cfg, batch: int) -> tuple:
@@ -258,26 +343,60 @@ def _slstm_cell(p, cfg, r: torch.Tensor, wx_t: torch.Tensor, carry):
     return (c, n, hout), hout
 
 
-def slstm_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def slstm_apply(p, cfg, x: torch.Tensor, t: Optional[tp.TP] = None,
+                seq: bool = False) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D) (residual included).  Sequential over
-    time: the sLSTM is not parallelizable over time (xLSTM paper §2)."""
-    bsz, s, d = x.shape
-    xn = norm_apply(p["ln"], x, cfg.norm)
-    wx = xn @ p["w"]                                # (B, S, 4D)
+    time: the sLSTM is not parallelizable over time (xLSTM paper §2).
+    With ``t``, tensor-parallel (module docstring): the loop runs alike
+    on every rank."""
+    if _computes_tp(p, t, _SLSTM_TP):
+        return _slstm_tp(_tp_weights(p, t, seq, alike=("r", "b")), cfg, x,
+                         t, seq)[0]
+    return tp.whole(lambda x: _slstm_whole(p, cfg, x), x, t, seq)
+
+
+def _slstm_scan(p, cfg, wx: torch.Tensor, dtype) -> torch.Tensor:
+    """The time loop from zero states over ``wx`` (B, S, 4D): the cells'
+    outputs (B, S, D) in ``dtype``."""
+    bsz, s, _ = wx.shape
     carry = tuple(torch.zeros(slstm_state_shape(cfg, bsz),
-                              dtype=torch.float32, device=x.device)
+                              dtype=torch.float32, device=wx.device)
                   for _ in range(3))
     r = p["r"].float()
     hs = []
-    for t in range(s):
-        carry, hout = _slstm_cell(p, cfg, r, wx[:, t], carry)
+    for i in range(s):
+        carry, hout = _slstm_cell(p, cfg, r, wx[:, i], carry)
         hs.append(hout)
-    hs = torch.stack(hs, dim=1).reshape(bsz, s, d).to(x.dtype)
-    return x + hs @ p["wo"]
+    return torch.stack(hs, dim=1).reshape(bsz, s, cfg.d_model).to(dtype)
 
 
-def slstm_decode(p, cfg, x: torch.Tensor, carry):
-    """x: (B, 1, D); carry: (c, n, h) each (B, H, dh)."""
+def _slstm_whole(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    xn = norm_apply(p["ln"], x, cfg.norm)
+    wx = xn @ p["w"]                                # (B, S, 4D)
+    return x + _slstm_scan(p, cfg, wx, x.dtype) @ p["wo"]
+
+
+def _slstm_tp(w: dict, cfg, x: torch.Tensor, t: tp.TP, seq: bool,
+              carry=None):
+    """The sLSTM on this rank (module docstring): the full sequence
+    (``carry`` None) or one decode step.  Returns (y, new carry or
+    None)."""
+    xin = _tp_enter(norm_apply(w["ln"], x, cfg.norm), t, seq)
+    # [z | i | f | o] gathered whole: each rank runs the loop on all of it
+    wx = tp.gather(xin @ w["w"], -1, t)
+    if carry is None:
+        hs = _slstm_scan(w, cfg, wx, x.dtype)
+    else:
+        carry, hout = _slstm_cell(w, cfg, w["r"].float(), wx[:, 0], carry)
+        hs = hout.reshape(x.shape[0], 1, cfg.d_model).to(x.dtype)
+    return x + _tp_leave(tp.split(hs, -1, t) @ w["wo"], t, seq), carry
+
+
+def slstm_decode(p, cfg, x: torch.Tensor, carry, t: Optional[tp.TP] = None):
+    """x: (B, 1, D); carry: (c, n, h) each (B, H, dh), replicated."""
+    if _computes_tp(p, t, _SLSTM_TP):
+        return _slstm_tp(_tp_weights(p, t, False, alike=("r", "b")), cfg,
+                         x, t, False, carry=carry)
     xn = norm_apply(p["ln"], x, cfg.norm)
     wx = (xn @ p["w"])[:, 0]
     carry, hout = _slstm_cell(p, cfg, p["r"].float(), wx, carry)
@@ -354,16 +473,75 @@ def _mamba2_out(p, h_mix: torch.Tensor, z: torch.Tensor,
     return x + (hflat * F.silu(z)) @ p["w_out"]
 
 
-def mamba2_apply(p, cfg, x: torch.Tensor) -> torch.Tensor:
+def mamba2_apply(p, cfg, x: torch.Tensor, t: Optional[tp.TP] = None,
+                 seq: bool = False) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D) (residual included); with ``t``,
+    tensor-parallel (module docstring)."""
+    if _computes_tp(p, t, _MAMBA2_TP):
+        return _mamba2_tp(_tp_weights(p, t, seq), cfg, x, t, seq)[0]
+    return tp.whole(lambda x: _mamba2_whole(p, cfg, x), x, t, seq)
+
+
+def _mamba2_whole(p, cfg, x: torch.Tensor) -> torch.Tensor:
     q, k, v, log_f, log_i, z, _ = _mamba2_proj(p, cfg, x)
     out, _ = chunked_gla(q, k, v, log_f, log_i, cfg.ssm_chunk)
     return _mamba2_out(p, out, z, x)
 
 
+def _mamba2_tp(w: dict, cfg, x: torch.Tensor, t: tp.TP, seq: bool,
+               state: Optional[torch.Tensor] = None,
+               conv_state: Optional[torch.Tensor] = None):
+    """Mamba2 on this rank (module docstring): the full sequence
+    (``state`` None) or one decode step from ``state`` and this rank's
+    channels of ``conv_state``.  Returns (y, new_state or None,
+    new_conv_state)."""
+    h, n = cfg.n_heads, cfg.ssm_state
+    xin = _tp_enter(norm_apply(w["ln"], x, cfg.norm), t, seq)
+    b, s, _ = xin.shape
+    u, z = tp.part_blocks(xin @ w["w_in"], 2, -1, t).chunk(2, dim=-1)
+    width = u.shape[-1]                            # this rank's channels
+    di = width * t.n
+    # the causal conv on this rank's channels, as _mamba2_proj runs it
+    if conv_state is None:
+        upad = F.pad(u, (0, 0, _CONV_W - 1, 0))
+    else:
+        upad = torch.cat([conv_state.to(u.dtype), u], dim=1)
+    new_conv = upad[:, -(_CONV_W - 1):, :]
+    u = F.silu(sum(upad[:, i:i + s, :] * w["conv"][i]
+                   for i in range(_CONV_W)))
+    plan = _mixer_plan(h, di // h, t, state)
+    heads = slice(plan.q0, plan.q1)
+    xf = xin.float()
+    dt = F.softplus(xf @ w["wdt"] + w["bdt"])[..., heads]
+    log_f = -dt * torch.exp(w["a_log"][heads])
+    log_i = torch.log(dt + 1e-6)
+    nh = plan.q1 - plan.q0
+    k = (xin @ w["wb"])[:, :, None, :].expand(b, s, nh, n)
+    q = (xin @ w["wc"])[:, :, None, :].expand(b, s, nh, n)
+    v = _head_block(u, plan, di // h, t)
+    if state is None:
+        out, _ = chunked_gla(q, k, v, log_f, log_i, cfg.ssm_chunk)
+    else:
+        out, state = gla_decode_step(state, q[:, 0], k[:, 0], v[:, 0],
+                                     log_f[:, 0], log_i[:, 0])
+        out = out[:, None]
+    hb = out.reshape(b, s, -1)[..., plan.c0:plan.c1].to(x.dtype)
+    # the gated RMSNorm over all of Di, on this rank's block of it
+    scale = w["gn"]["scale"][t.i * width:(t.i + 1) * width]
+    hb = (hb.float() * torch.rsqrt(tp.mean_squares(hb, t) + 1e-6)
+          * scale.float()).to(x.dtype)
+    return (x + _tp_leave((hb * F.silu(z)) @ w["w_out"], t, seq), state,
+            new_conv)
+
+
 def mamba2_decode(p, cfg, x: torch.Tensor, state: torch.Tensor,
-                  conv_state: torch.Tensor):
-    """x: (B, 1, D); state: (B, H, N, dh); conv_state: (B, 3, Di).
+                  conv_state: torch.Tensor, t: Optional[tp.TP] = None):
+    """x: (B, 1, D); state: (B, H, N, dh); conv_state: (B, 3, Di); with
+    ``t``, this rank's blocks of states placed by ``rules.cache_pspec``.
     Returns (y, new_state, new_conv_state)."""
+    if _computes_tp(p, t, _MAMBA2_TP):
+        return _mamba2_tp(_tp_weights(p, t, False), cfg, x, t, False,
+                          state=state, conv_state=conv_state)
     q, k, v, log_f, log_i, z, new_conv = _mamba2_proj(p, cfg, x, conv_state)
     h, state = gla_decode_step(
         state, q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], log_i[:, 0])
@@ -375,3 +553,80 @@ def mamba2_state_shapes(cfg, batch: int) -> tuple:
     dh = di // cfg.n_heads
     return ((batch, cfg.n_heads, cfg.ssm_state, dh),
             (batch, _CONV_W - 1, di))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (module docstring)
+# ---------------------------------------------------------------------------
+
+#: (weights sharded on their last dim: the column-parallel projections
+#: and Mamba2's conv channels; the row-parallel ones, on their first) of
+#: each mixer's tensor-parallel path
+_MLSTM_TP = (("wu", "wz", "wq", "wk", "wv"), ("wo",))
+_SLSTM_TP = (("w",), ("wo",))
+_MAMBA2_TP = (("w_in", "conv"), ("w_out",))
+
+
+def _computes_tp(p, t: Optional[tp.TP], roles: tuple) -> bool:
+    """The block computes tensor-parallel: its ``roles`` weights are all
+    sharded on the ``model`` axis, the columns on their last dim and the
+    rows on their first."""
+    columns, rows = roles
+    return t is not None and all(
+        tp.sharded(t, raw(p, n), -1) for n in columns) and all(
+        tp.sharded(t, raw(p, n), 0) for n in rows)
+
+
+def _tp_weights(p, t: tp.TP, seq: bool, alike: tuple = ()) -> dict:
+    """The block's weights as this rank computes with them: a weight the
+    ``model`` axis shards is its block; a replicated one takes a gradient
+    summed over the axis (each rank uses it on its own heads), but those
+    in ``alike`` (used alike on every rank) and the input norm ``ln``
+    (unless ``seq``: each rank normalises other positions); the gated
+    norm ``gn`` whole, its gradient summed too."""
+    axes = place.current_batch_axes()
+    summed = axes + ("model",)
+    out = {}
+    for name, w in p._parameters.items():
+        out[name] = (place.local(w, keep_model=True)
+                     if tp.model_dim(w) is not None else
+                     place.local(w, axes if name in alike else summed))
+    for name, sub in p.named_children():
+        over = summed if name == "gn" or seq else axes
+        out[name] = {k: place.local(w, over)
+                     for k, w in sub._parameters.items()}
+    return out
+
+
+def _tp_enter(xn: torch.Tensor, t: tp.TP, seq: bool) -> torch.Tensor:
+    """The normalised input entering rank-distinct work: the whole
+    sequence, gathered from this rank's block under ``seq``."""
+    return tp.gather_sum(xn, 1, t) if seq else tp.copy_to(xn, t)
+
+
+def _tp_leave(y: torch.Tensor, t: tp.TP, seq: bool) -> torch.Tensor:
+    """A row-parallel product summed over the axis (this rank's block of
+    the sequence under ``seq``)."""
+    return tp.reduce_scatter(y, 1, t) if seq else tp.reduce_from(y, t)
+
+
+def _mixer_plan(h: int, dh: int, t: tp.TP,
+                state: Optional[torch.Tensor] = None) -> tp.HeadPlan:
+    """The heads this rank computes and its output columns among them:
+    ``tp.head_plan``'s, or every head where a decode ``state`` holds them
+    all (it stays whole, and alike on every rank)."""
+    if state is not None and state.shape[1] == h:
+        width = h * dh // t.n
+        return tp.HeadPlan(0, h, 0, h, None, t.i * width, (t.i + 1) * width)
+    return tp.head_plan(h, h, dh, t.n, t.i)
+
+
+def _head_block(y: torch.Tensor, plan: tp.HeadPlan, dh: int, t: tp.TP
+                ) -> torch.Tensor:
+    """Heads ``[plan.q0, plan.q1)`` (B, S, nh, dh) of a head-major
+    product whose column block ``y`` (B, S, W / n) this rank holds:
+    ``y`` itself where it is those heads, else gathered over the axis."""
+    b, s, width = y.shape
+    if (plan.c0, plan.c1) != (0, width) or (plan.q1 - plan.q0) * dh != width:
+        y = tp.gather_sum(y, -1, t)[..., plan.q0 * dh:plan.q1 * dh]
+    return y.reshape(b, s, plan.q1 - plan.q0, dh)

@@ -45,22 +45,26 @@ that fills the cache and unembeds the last position only, where the
 reference runs ``forward`` and ``fill_cache`` and leaves XLA to share
 their work.
 
-Tensor parallelism.  For dense, moe and vlm, a model placed on a mesh
+Tensor parallelism.  A model of any family placed on a mesh
 (``sharding.place.distribute_model``) whose weights the ``model`` axis
 shards computes tensor-parallel (:mod:`repro_torch.sharding.tp`): the
 embedding is a lookup in this rank's vocabulary block plus an all-reduce
-over the axis, attention and the MLP split their heads and d_ff, the MoE
-d_ff inside each expert (or its experts, "ep"), and the head gives each
-rank its vocabulary columns: ``loss_fn`` is a vocabulary-parallel cross
-entropy, with no whole (B, S, V) logits, while ``forward`` gathers them
-whole for its callers.  Under ``act_shard="seq_model"`` the residual
-stream between blocks is each rank's 1/|model| of the sequence
+over the axis, attention (whisper's encoder and cross attention too) and
+the MLPs split their heads and d_ff, the MoE d_ff inside each expert (or
+its experts, "ep"), the mLSTM, sLSTM and Mamba2 mixers their inner width
+(:mod:`repro_torch.models.ssm`), and the head gives each rank its
+vocabulary columns: ``loss_fn`` is a vocabulary-parallel cross entropy,
+with no whole (B, S, V) logits, while ``forward`` gathers them whole for
+its callers.  Under ``act_shard="seq_model"`` the residual stream
+between blocks (the decoder's and, where its length divides the axis,
+the encoder's) is each rank's 1/|model| of the sequence
 (``_act_constraint``), the norms run on it, and it is gathered before
 each column-parallel product and reduce-scattered after each
 row-parallel one.  ``prefill`` then places its cache by
-``rules.cache_pspec`` (``models.io.place_cache``), and ``decode_step``
-reads that placement.  The audio, ssm and hybrid families gather every
-weight whole at its use.
+``rules.cache_pspec`` (``models.io.place_cache``): the KV caches by
+heads or sequence, the SSM states by heads, the conv windows by
+channels, the sLSTM carry replicated; ``decode_step`` reads that
+placement.
 
 Audio, ssm and hybrid follow the reference exactly, including its
 ``fill_cache``, which only sets ``pos``: after :func:`prefill` the
@@ -83,8 +87,8 @@ from ..device import resolve_device
 from ..sharding import place, tp
 from ..sharding.place import local
 from .attention import (
-    _reference_attention, _split_heads, attention, attn_init,
-    decode_attention, init_layer_cache,
+    attention, attn_init, cross_decode_attention, decode_attention,
+    init_layer_cache,
 )
 from .layers import (
     Params, dense_init, embed_init, gelu_mlp, mlp_init, norm_apply,
@@ -431,9 +435,10 @@ def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
 
 
 def _head_weight(model) -> tuple:
-    """(the unembedding weight as stored, its vocabulary dim)."""
-    return ((model.embed, 0) if model.lm_head is None
-            else (model.lm_head, 1))
+    """(the unembedding weight as stored, its vocabulary dim); whisper's
+    is its embedding."""
+    head = getattr(model, "lm_head", None)
+    return (model.embed, 0) if head is None else (head, 1)
 
 
 def _head(model, t: Optional[tp.TP]):
@@ -476,65 +481,68 @@ def _sinusoidal_at(pos: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :]
 
 
-def _whisper_encode(cfg, model: EncDecLM, frames: torch.Tensor
-                    ) -> torch.Tensor:
+def _whisper_encode(cfg, model: EncDecLM, frames: torch.Tensor,
+                    t: Optional[tp.TP] = None) -> tuple:
     """frames: (B, enc_seq, D) precomputed embeddings (conv-frontend
-    stub).  Non-causal self-attention, no RoPE."""
+    stub).  Non-causal self-attention, no RoPE.  Returns (the encoder's
+    output, whether it is this rank's block of the frames: sequence
+    parallelism where their number divides the axis)."""
     dt = _dt(cfg)
     frames = frames.to(model.device)
     x = frames.to(dt) + _sinusoidal(frames.shape[1], cfg.d_model,
                                     model.device).to(dt)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device).expand(x.shape[:2])
+    seq = _seq_parallel(cfg, t, x.shape[1])
+    if seq:
+        x = tp.split(x, 1, t)
 
     def block(p, x):
-        h = norm_apply(p.ln1, x, cfg.norm)
+        h = _norm(cfg, p.ln1, x, seq)
         a, _ = attention(p.attn, cfg, h, positions, causal=False,
-                         use_rope=False)
+                         use_rope=False, t=t, seq=seq)
         x = x + a
-        h = norm_apply(p.ln2, x, cfg.norm)
-        return x + gelu_mlp(p.mlp, h)
+        h = _norm(cfg, p.ln2, x, seq)
+        return x + gelu_mlp(p.mlp, h, t, seq)
 
     for p in model.encoder:
         x = _remat(cfg, p, functools.partial(block, p), x)
-    return norm_apply(model.enc_norm, x, cfg.norm)
+    return _norm(cfg, model.enc_norm, x, seq), seq
 
 
 def _whisper_decode_full(cfg, model: EncDecLM, tokens: torch.Tensor,
-                         enc_out: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention, then non-causal cross-attention on
-    ``enc_out``, then the GELU MLP, in each decoder block."""
+                         enc: tuple, t: Optional[tp.TP] = None,
+                         seq: bool = False) -> torch.Tensor:
+    """Causal self-attention, then non-causal cross-attention on the
+    encoder's output (``enc``, as :func:`_whisper_encode` returns it),
+    then the GELU MLP, in each decoder block; under ``seq`` the stream is
+    this rank's block of the tokens."""
+    enc_out, enc_seq = enc
     dt = _dt(cfg)
-    x = local(model.embed)[tokens.to(model.device)].to(dt)
-    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(dt)
-    b, s, _ = x.shape
+    tokens = tokens.to(model.device)
+    b, s = tokens.shape
+    pos = _sinusoidal(s, cfg.d_model, model.device).to(dt)
+    x = _embed_tokens(cfg, model, tokens, t, scatter=seq) + (
+        pos.chunk(t.n, dim=0)[t.i] if seq else pos)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
 
     def block(p, x):
-        h = norm_apply(p.ln1, x, cfg.norm)
-        a, _ = attention(p.attn, cfg, h, positions, use_rope=False)
+        h = _norm(cfg, p.ln1, x, seq)
+        a, _ = attention(p.attn, cfg, h, positions, use_rope=False, t=t,
+                         seq=seq)
         x = x + a
-        h = norm_apply(p.lnx, x, cfg.norm)
+        h = _norm(cfg, p.lnx, x, seq)
         a, _ = attention(p.xattn, cfg, h, positions, causal=False,
-                         kv_x=enc_out, use_rope=False)
+                         kv_x=enc_out, use_rope=False, t=t, seq=seq,
+                         kv_seq=enc_seq)
         x = x + a
-        h = norm_apply(p.ln2, x, cfg.norm)
-        return x + gelu_mlp(p.mlp, h)
+        h = _norm(cfg, p.ln2, x, seq)
+        return x + gelu_mlp(p.mlp, h, t, seq)
 
     for p in model.decoder:
         x = _remat(cfg, p, functools.partial(block, p), x)
     return x
-
-
-def _cross_decode(p, cfg, x: torch.Tensor, xk: torch.Tensor,
-                  xv: torch.Tensor) -> torch.Tensor:
-    """Cross attention against the cached encoder k/v (no cache update)."""
-    hq, hd = cfg.n_heads, cfg.head_dim
-    b, s, _ = x.shape
-    q = _split_heads(x @ p["wq"], hq, hd)
-    out = _reference_attention(q, xk, xv, causal=False)
-    return out.reshape(b, s, hq * hd) @ p["wo"]
 
 
 # -- the public functions -----------------------------------------------------
@@ -545,22 +553,26 @@ def forward(cfg, model, batch: dict, *,
     """Full-sequence logits (training / prefill).  ``last_only`` unembeds
     the final position only (serving prefill needs just the next-token
     distribution)."""
-    if cfg.family == "audio":
-        enc_out = _whisper_encode(cfg, model, batch["frames"])
-        x = _whisper_decode_full(cfg, model, batch["tokens"], enc_out)
-        if last_only:
-            x = x[:, -1:, :]
-        x = norm_apply(model.final_norm, x, cfg.norm)
-        return x @ local(model.embed).T   # whisper ties embeddings
     t = _tp_axis(cfg, model)
-    seq = _seq_parallel(cfg, t, _seq_len(cfg, batch))
-    x, positions = _embed_inputs(cfg, model, batch, t, seq)
-    x = _backbone_full(cfg, model, x, positions, t, seq)
+    x, seq = _hidden(cfg, model, batch, t)
     if seq:
         x = tp.gather(x[:, -1:] if last_only else x, 1, t)
     if last_only:
         x = x[:, -1:, :]
     return _unembed(cfg, model, x, t)
+
+
+def _hidden(cfg, model, batch: dict, t: Optional[tp.TP]) -> tuple:
+    """(the last block's output, whether it is this rank's block of the
+    sequence): whisper's decoder over its encoder, the other families'
+    backbone over their embedded inputs."""
+    seq = _seq_parallel(cfg, t, _seq_len(cfg, batch))
+    if cfg.family == "audio":
+        enc = _whisper_encode(cfg, model, batch["frames"], t)
+        return _whisper_decode_full(cfg, model, batch["tokens"], enc, t,
+                                    seq), seq
+    x, positions = _embed_inputs(cfg, model, batch, t, seq)
+    return _backbone_full(cfg, model, x, positions, t, seq), seq
 
 
 def _seq_len(cfg, batch: dict) -> int:
@@ -602,25 +614,25 @@ def _backbone_full(cfg, model, x: torch.Tensor,
     """Full-sequence pass through the blocks (train / prefill).  The
     blocks the reference recomputes under ``cfg.remat == "full"``: each
     dense block, the mLSTM blocks (not the sLSTM ones) and the Mamba2
-    blocks (not the shared attention block).  With ``t`` the dense
-    blocks run tensor-parallel (``x`` this rank's block of the sequence
-    under ``seq``, and so is the result)."""
+    blocks (not the shared attention block).  With ``t`` the blocks run
+    tensor-parallel (``x`` this rank's block of the sequence under
+    ``seq``, and so is the result)."""
     if cfg.family == "ssm":
         for mblocks, sblock in zip(model.mblocks, model.sblocks):
             for p in mblocks:
-                x = _remat(cfg, p, functools.partial(ssm.mlstm_apply, p, cfg),
-                           x)
-            x = ssm.slstm_apply(sblock, cfg, x)
+                x = _remat(cfg, p, functools.partial(
+                    ssm.mlstm_apply, p, cfg, t=t, seq=seq), x)
+            x = ssm.slstm_apply(sblock, cfg, x, t=t, seq=seq)
         return x
     if cfg.family == "hybrid":
         def mamba(p, x):
-            return _remat(cfg, p, functools.partial(ssm.mamba2_apply, p, cfg),
-                          x)
+            return _remat(cfg, p, functools.partial(
+                ssm.mamba2_apply, p, cfg, t=t, seq=seq), x)
 
         for mblocks in model.mamba_sb:
             for p in mblocks:
                 x = mamba(p, x)
-            x, _ = _dense_block(cfg, model.shared_attn, x, positions)
+            x, _ = _dense_block(cfg, model.shared_attn, x, positions, t, seq)
         for p in model.mamba_tail:
             x = mamba(p, x)
         return x
@@ -656,14 +668,12 @@ def loss_fn(cfg, model, batch: dict):
     return nll, {"loss": nll, "perplexity": torch.exp(nll)}
 
 
-def _tp_loss(cfg, model: DenseLM, batch: dict, t: tp.TP):
+def _tp_loss(cfg, model, batch: dict, t: tp.TP):
     """``loss_fn`` of a tensor-parallel model whose head is split over the
     vocabulary: the final norm on this rank's positions (under seq), the
     sequence gathered, each rank's logit columns, then
     ``tp.vocab_parallel_nll``.  The same on every rank of the axis."""
-    seq = _seq_parallel(cfg, t, _seq_len(cfg, batch))
-    x, positions = _embed_inputs(cfg, model, batch, t, seq)
-    x = _backbone_full(cfg, model, x, positions, t, seq)
+    x, seq = _hidden(cfg, model, batch, t)
     x = _norm(cfg, model.final_norm, x, seq)
     x = tp.gather_sum(x, 1, t) if seq else tp.copy_to(x, t)
     if cfg.family == "vlm":
@@ -710,15 +720,23 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     return cache
 
 
-def _cache_blocks(cache: dict):
-    """(this rank's blocks of the k and v caches, and the dim of a
-    layer's (B, S, Hkv, hd) block the ``model`` axis splits: 2 for the
-    heads, 1 for the sequence, None where each rank holds it whole)."""
-    k, v = cache["k"], cache["v"]
+def _cache_blocks(cache: dict, names: tuple = ("k", "v")):
+    """(this rank's blocks of the k and v caches (or of the ``names``
+    pair), and the dim of a layer's (B, S, Hkv, hd) block the ``model``
+    axis splits: 2 for the heads, 1 for the sequence, None where each
+    rank holds it whole)."""
+    k, v = (cache[n] for n in names)
     dim = tp.model_dim(k)
     if not place.is_dtensor(k):
         return k, v, None
     return k.to_local(), v.to_local(), None if dim is None else dim - 1
+
+
+def _local_states(cache: dict, names: tuple) -> dict:
+    """This rank's blocks of the cache's ``names`` states (views, written
+    in place)."""
+    return {n: cache[n].to_local() if place.is_dtensor(cache[n])
+            else cache[n] for n in names}
 
 
 def _prefill_pass(cfg, model: DenseLM, batch: dict, cache: dict,
@@ -785,29 +803,29 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     t = _tp_axis(cfg, model)
     x = _embed_tokens(cfg, model, tokens.to(model.device), t)
     if cfg.family == "ssm":
-        x = _xlstm_decode(cfg, model, cache, x)
+        x = _xlstm_decode(cfg, model, cache, x, t)
         cache["pos"] = pos + 1
-        return _unembed(cfg, model, x), cache
+        return _unembed(cfg, model, x, t), cache
     if cfg.family == "hybrid":
-        x = _zamba_decode(cfg, model, cache, x, pos)
+        x = _zamba_decode(cfg, model, cache, x, pos, t)
         cache["pos"] = pos + 1
-        return _unembed(cfg, model, x), cache
+        return _unembed(cfg, model, x, t), cache
+    kc, vc, dim = _cache_blocks(cache)
     if cfg.family == "audio":
+        xk, xv, xdim = _cache_blocks(cache, ("xk", "xv"))
         x = x + _sinusoidal_at(pos, cfg.d_model, x.device).to(dt)
         for i, p in enumerate(model.decoder):
             h = norm_apply(p.ln1, x, cfg.norm)
-            a, _, _ = decode_attention(p.attn, cfg, h, cache["k"][i],
-                                       cache["v"][i], pos, use_rope=False)
+            a, _, _ = decode_attention(p.attn, cfg, h, kc[i], vc[i], pos,
+                                       use_rope=False, t=t, cache_dim=dim)
             x = x + a
             h = norm_apply(p.lnx, x, cfg.norm)
-            x = x + _cross_decode(p.xattn, cfg, h, cache["xk"][i],
-                                  cache["xv"][i])
+            x = x + cross_decode_attention(p.xattn, cfg, h, xk[i], xv[i],
+                                           t=t, cache_dim=xdim)
             h = norm_apply(p.ln2, x, cfg.norm)
-            x = x + gelu_mlp(p.mlp, h)
-        x = norm_apply(model.final_norm, x, cfg.norm)
+            x = x + gelu_mlp(p.mlp, h, t)
         cache["pos"] = pos + 1
-        return x @ local(model.embed).T, cache
-    kc, vc, dim = _cache_blocks(cache)
+        return _unembed(cfg, model, x, t), cache
     for i, p in enumerate(model.layers):
         h = norm_apply(p.ln1, x, cfg.norm)
         a, _, _ = decode_attention(p.attn, cfg, h, kc[i], vc[i], pos, t=t,
@@ -819,42 +837,47 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     return _unembed(cfg, model, x, t), cache
 
 
-def _xlstm_decode(cfg, model: XLSTMLM, cache: dict,
-                  x: torch.Tensor) -> torch.Tensor:
-    """One token through every block, each state updated in place."""
+def _xlstm_decode(cfg, model: XLSTMLM, cache: dict, x: torch.Tensor,
+                  t: Optional[tp.TP] = None) -> torch.Tensor:
+    """One token through every block, each state (this rank's block of
+    it) updated in place."""
+    st = _local_states(cache, ("m", "s_c", "s_n", "s_h"))
     for sb, (mblocks, sblock) in enumerate(zip(model.mblocks, model.sblocks)):
         for i, p in enumerate(mblocks):
-            x, st = ssm.mlstm_decode(p, cfg, x, cache["m"][sb, i])
-            cache["m"][sb, i] = st
-        carry = tuple(cache[name][sb] for name in ("s_c", "s_n", "s_h"))
-        x, carry = ssm.slstm_decode(sblock, cfg, x, carry)
-        for name, st in zip(("s_c", "s_n", "s_h"), carry):
-            cache[name][sb] = st
+            x, new = ssm.mlstm_decode(p, cfg, x, st["m"][sb, i], t=t)
+            st["m"][sb, i] = new
+        carry = tuple(st[name][sb] for name in ("s_c", "s_n", "s_h"))
+        x, carry = ssm.slstm_decode(sblock, cfg, x, carry, t=t)
+        for name, new in zip(("s_c", "s_n", "s_h"), carry):
+            st[name][sb] = new
     return x
 
 
 def _zamba_decode(cfg, model: ZambaLM, cache: dict, x: torch.Tensor,
-                  pos: int) -> torch.Tensor:
+                  pos: int, t: Optional[tp.TP] = None) -> torch.Tensor:
     """One token through every block: the Mamba2 states and conv windows
-    updated in place, the shared block's attention against superblock
-    ``sb``'s KV cache, written in place at ``pos``."""
+    (this rank's blocks of them) updated in place, the shared block's
+    attention against superblock ``sb``'s KV cache, written in place at
+    ``pos``."""
     shared = model.shared_attn
+    st = _local_states(cache, ("m", "conv", "m_tail", "conv_tail"))
+    kc, vc, dim = _cache_blocks(cache)
 
     def mamba(p, x, state, conv):
-        y, st, cv = ssm.mamba2_decode(p, cfg, x, state, conv)
-        state.copy_(st)
+        y, new, cv = ssm.mamba2_decode(p, cfg, x, state, conv, t=t)
+        state.copy_(new)
         conv.copy_(cv)
         return y
 
     for sb, mblocks in enumerate(model.mamba_sb):
         for i, p in enumerate(mblocks):
-            x = mamba(p, x, cache["m"][sb, i], cache["conv"][sb, i])
+            x = mamba(p, x, st["m"][sb, i], st["conv"][sb, i])
         h = norm_apply(shared.ln1, x, cfg.norm)
-        a, _, _ = decode_attention(shared.attn, cfg, h, cache["k"][sb],
-                                   cache["v"][sb], pos)
+        a, _, _ = decode_attention(shared.attn, cfg, h, kc[sb], vc[sb], pos,
+                                   t=t, cache_dim=dim)
         x = x + a
         h = norm_apply(shared.ln2, x, cfg.norm)
-        x = x + swiglu_mlp(shared.mlp, h)
+        x = x + swiglu_mlp(shared.mlp, h, t)
     for i, p in enumerate(model.mamba_tail):
-        x = mamba(p, x, cache["m_tail"][i], cache["conv_tail"][i])
+        x = mamba(p, x, st["m_tail"][i], st["conv_tail"][i])
     return x

@@ -32,13 +32,19 @@ op                     forward               backward
 ``copy_to`` marks a replicated tensor that enters rank-distinct work (a
 column-parallel product), ``gather_sum`` the same for a sequence shard;
 ``gather`` and ``split`` move a tensor that every rank then uses alike.
+Two more serve the recurrent mixers: :func:`part_blocks` moves a
+column-parallel product whose output is several tensors side by side
+(Mamba2's ``w_in``, [u | z]) to this rank's block of each, and
+:func:`mean_squares` all-reduces a norm's mean square over a feature
+dim the axis splits (Mamba2's gated RMSNorm), both ways.
 :func:`vocab_parallel_nll` is the cross entropy over a vocabulary split
 on the axis, without whole logits.
 
 Which weights compute tensor-parallel is decided by their placement
-(:func:`model_dim`), for the families in :data:`FAMILIES`; the audio,
-ssm and hybrid families gather every weight whole at its use
-(``place.local``), as do weights whose ``model`` proposal fell back.
+alone (:func:`model_dim`), for every family: a block whose weights the
+``model`` axis shards computes on its blocks, and weights whose
+``model`` proposal fell back are gathered whole at their use
+(``place.local``).
 """
 
 from __future__ import annotations
@@ -51,14 +57,10 @@ import torch.distributed as dist
 from . import place
 
 __all__ = [
-    "FAMILIES", "TP", "axis_of", "copy_to", "gather", "gather_sum",
-    "head_plan", "model_dim", "reduce_from", "reduce_scatter", "sharded",
-    "split", "vocab_parallel_nll", "whole",
+    "TP", "axis_of", "copy_to", "gather", "gather_sum", "head_plan",
+    "mean_squares", "model_dim", "part_blocks", "reduce_from",
+    "reduce_scatter", "sharded", "split", "vocab_parallel_nll", "whole",
 ]
-
-#: families whose blocks compute tensor-parallel; the others wait (their
-#: TP meets the chunked-GLA reshapes and whisper's encoder)
-FAMILIES = ("dense", "vlm", "moe")
 
 
 class TP(NamedTuple):
@@ -91,10 +93,8 @@ def model_dim(w) -> Optional[int]:
 
 def axis_of(cfg, weights) -> Optional[TP]:
     """The ``model`` axis a model of ``cfg`` computes tensor-parallel
-    over: some weight of ``weights`` is sharded on it and the family is
-    one of :data:`FAMILIES`; None otherwise (the whole-weight path)."""
-    if cfg.family not in FAMILIES:
-        return None
+    over: some weight of ``weights`` is sharded on it; None otherwise
+    (the whole-weight path)."""
     for w in weights:
         if model_dim(w) is not None:
             mesh = w.device_mesh
@@ -209,6 +209,44 @@ class _Gather(torch.autograd.Function):
                 None, None)
 
 
+class _PartBlocks(torch.autograd.Function):
+    """This rank's block of each of ``parts`` equal tensors laid side by
+    side along ``dim``, from this rank's block of the whole: all-gathered,
+    then sliced.  The gradient, nonzero only at this rank's slices, is
+    reduce-scattered back onto the blocks."""
+
+    @staticmethod
+    def forward(ctx, x, parts, dim, n, i, group):
+        ctx.parts, ctx.dim, ctx.n, ctx.i, ctx.group = parts, dim, n, i, group
+        whole = _all_gather(x, dim, n, group)
+        return torch.cat([p.chunk(n, dim=dim)[i]
+                          for p in whole.chunk(parts, dim=dim)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks = []
+        for gp in g.chunk(ctx.parts, dim=ctx.dim):
+            zero = torch.zeros_like(gp)
+            blocks += [gp if r == ctx.i else zero for r in range(ctx.n)]
+        return (_reduce_scatter(torch.cat(blocks, dim=ctx.dim), ctx.dim,
+                                ctx.n, ctx.group),
+                None, None, None, None, None)
+
+
+class _SumAll(torch.autograd.Function):
+    """A partial sum all-reduced, whose value every rank then uses on its
+    own block: the gradient is all-reduced too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
 def copy_to(x: torch.Tensor, t: TP) -> torch.Tensor:
     """A replicated ``x`` entering rank-distinct work."""
     return _CopyTo.apply(x, t.group)
@@ -236,6 +274,28 @@ def split(x: torch.Tensor, dim: int, t: TP) -> torch.Tensor:
 
 def gather(x: torch.Tensor, dim: int, t: TP) -> torch.Tensor:
     return _Gather.apply(x, dim, t.n, t.i, t.group)
+
+
+def part_blocks(x: torch.Tensor, parts: int, dim: int, t: TP
+                ) -> torch.Tensor:
+    """Helper (a) of the recurrent mixers: ``x`` is this rank's block
+    along ``dim`` of a column-parallel product whose whole output is
+    ``parts`` tensors of equal width side by side ([u | z]); returns this
+    rank's block of each, side by side.  The reference places such a
+    weight by contiguous blocks (at |model| 4, ranks 0-1 hold u and 2-3
+    z), which match neither the rank's heads nor its other blocks."""
+    return _PartBlocks.apply(x, parts, dim, t.n, t.i, t.group)
+
+
+def mean_squares(x: torch.Tensor, t: TP) -> torch.Tensor:
+    """Helper (b): the f32 mean square over a feature dim the axis splits
+    in equal blocks, ``x`` this rank's block of it (the last dim; keepdim):
+    each rank's squares summed locally (as its mean over 1/n of the dim)
+    and all-reduced, a norm over the whole dim without gathering ``x``.
+    On one rank it is ``norm_apply``'s mean to the bit."""
+    xf = x.float()
+    part = (xf * xf).mean(dim=-1, keepdim=True)
+    return _SumAll.apply(part if t.n == 1 else part / t.n, t.group)
 
 
 def whole(fn, x: torch.Tensor, t: Optional[TP], seq: bool):

@@ -781,6 +781,28 @@ for name, m in (("plain", None), ("mesh", mesh)):
     served[name] = (torch.stack(steps), dict(fa_ops.counts))
 out["tp_serve_err"] = float((served["mesh"][0] - served["plain"][0]).abs().max())
 out["tp_serve_launches"] = served["mesh"][1]["flash_attention"]
+
+# a reduced hybrid (zamba2, a Mamba2 tail) placed by the inference specs:
+# its tensor-parallel prefill against the same placed model's whole-weight
+# path
+from unittest import mock
+
+hcfg = configs.reduced(configs.get_config("zamba2-7b"), n_layers=5,
+                       attention_impl="pallas")
+model = init_params(hcfg, torch.Generator("cuda").manual_seed(0), "cuda")
+place.distribute_model(model, rules.param_specs(
+    hcfg, param_shapes(hcfg), mesh, training=False), mesh)
+hb = make_batch(hcfg, 2, 24, seed=0, device="cuda")
+fa_ops.counts.update({k: 0 for k in fa_ops.counts})
+with torch.no_grad():
+    hybrid = {"tp": prefill(hcfg, model, hb, 28)}
+    out["hybrid_launches"] = fa_ops.counts["flash_attention"]
+    with mock.patch.object(tp, "axis_of", lambda *a: None):
+        hybrid["whole"] = prefill(hcfg, model, hb, 28)
+out["hybrid_tp_axis"] = list(tp.axis_of(hcfg, model.parameters())[:2])
+out["hybrid_err"] = float((hybrid["tp"][0] - hybrid["whole"][0]).abs().max())
+out["hybrid_placements"] = {k: str(v.placements) for k, v in
+                            hybrid["tp"][1].items() if place.is_dtensor(v)}
 dist.destroy_process_group()
 print(json.dumps(out))
 '''
@@ -827,6 +849,22 @@ def test_tensor_parallel_step_and_serving_on_one_nccl_rank(nccl_run):
     assert nccl_run["tp_grad_err"] <= 1e-5
     assert nccl_run["tp_serve_err"] <= 1e-4
     assert nccl_run["tp_serve_launches"] > 0
+
+
+def test_hybrid_tensor_parallel_prefill_on_one_nccl_rank(nccl_run):
+    """A reduced zamba2 (f32, 5 layers) placed by the inference specs on
+    the one-rank NCCL mesh computes tensor-parallel (the Mamba2 mixers and
+    the shared block): its prefill's logits within 1e-6 of the same placed
+    model's whole-weight path's (one rank: the same products in the same
+    order),
+    its shared attention on the flash kernel, its cache placed by
+    ``cache_pspec`` (the states by heads, the conv windows by channels)."""
+    assert nccl_run["hybrid_tp_axis"] == [1, 0]
+    assert nccl_run["hybrid_err"] <= 1e-6
+    assert nccl_run["hybrid_launches"] == 2
+    where = nccl_run["hybrid_placements"]
+    assert where["m"] == "(Replicate(), Shard(dim=3))"
+    assert where["conv"] == "(Replicate(), Shard(dim=4))"
 
 
 def test_expert_parallel_on_the_card_equals_the_cpu(nccl_run):

@@ -55,8 +55,13 @@ def test_model_role_of_every_weight(arch):
             leaf = name.rsplit(".", 1)[-1]
             if "norm" in name or leaf in ("scale", "bias"):
                 assert role is None, name
-            if cfg.family in tp.FAMILIES and ".attn." in name:
+            if ".attn." in name or ".xattn." in name:
                 assert role == ("row" if leaf == "wo" else "column"), name
+            if ".moe." not in name and leaf in (
+                    "wu", "wz", "w_in", "w", "w1", "w3", "conv"):
+                assert role == "column", name
+            if ".moe." not in name and leaf in ("wo", "w_out", "w2"):
+                assert role == "row", name
             if name.endswith("lm_head"):
                 assert role == "column"
             if ".moe." in name and leaf != "router":

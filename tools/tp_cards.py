@@ -7,10 +7,12 @@ Starts one process a card (a ``FileStore`` in a temporary directory, no
 port), each running the port's tensor-parallel paths on a mesh of all
 the cards:
 
-1. the tensor-parallel cases of ``tests/test_torch_distributed.py`` at
-   (1, n) and (2, n / 2), with and without sequence parallelism, in f32
-   with TF32 off (reduced dense, GQA with 2 key/value heads, vlm, and
-   moe with 3 experts): the loss within 1e-5 relative and every gradient
+1. the tensor-parallel cases of ``tests/test_torch_distributed.py`` and
+   ``tests/test_torch_tensor_parallel_families.py`` at (1, n) and (2, n /
+   2), with and without sequence parallelism, in f32 with TF32 off
+   (reduced dense, GQA with 2 key/value heads, vlm, moe with 3 experts,
+   whisper, xlstm at 4 and at 2 heads, zamba2 at 5 layers): the loss
+   within 1e-5 relative and every gradient
    within 1e-4 of its tensor's max-abs of the same weights unplaced on
    the same card, and the placed model's greedy ``prefill`` and 4
    ``decode_step``s (its cache placed by ``rules.cache_pspec``) giving
@@ -19,7 +21,18 @@ the cards:
    4 x 2,048 on one fixed batch, ``"reference"`` attention) through
    ``TrainLoop(mesh=)`` at (1, n): the first loss against the unsharded
    loop's on one card (rank 0, before), then a warm step's seconds,
-   peak memory, and one profiled step's busy share and NCCL kernel time.
+   peak memory, and one profiled step's busy share and NCCL kernel time;
+3. zamba2-7b at full size in bf16 (``attention_impl="pallas"``), placed by
+   the inference specs at (1, n): one prefill's every-position logits of
+   4 x 2,048 tokens held to the bf16 gate of ``chip_smoke.py``'s phase 7
+   against one card's (rank 0, before: the ``"reference"`` attention path,
+   and the floor, the kernel's plain version in its place; beside it,
+   unheld, the deviation that moving the embeddings by one bf16 unit
+   roundoff causes), a warm
+   prefill's seconds, peak memory a rank and one profiled prefill's NCCL
+   kernel time; then in f32 at 13 layers (phase 15's cut) the placed
+   model's every-position logits against one card's within 1e-3
+   (``chip_smoke.F32_LOGITS_TOL``).
 
 Rank 0 prints the card, its power limit and one JSON line of the results;
 a failed check exits non-zero.  ``--device cpu`` runs the same on gloo
@@ -35,6 +48,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -47,7 +61,12 @@ CASES = {
                                    vocab_size=256, dtype="float32")),
     "vlm": ("llava-next-mistral-7b", {}),
     "moe": ("qwen3-moe-235b-a22b", dict(n_experts=3)),
+    "audio": ("whisper-large-v3", {}),
+    "ssm": ("xlstm-1.3b", {}),
+    "ssm2": ("xlstm-1.3b", dict(n_heads=2, n_kv_heads=2)),
+    "hybrid": ("zamba2-7b", dict(n_layers=5)),
 }
+PREFILL = dict(arch="zamba2-7b", batch=4, seq=2048, f32_layers=13)
 TRAIN = dict(batch=4, seq=2048, steps=3, opt={"lr": 1e-3, "warmup_steps": 2,
                                               "total_steps": 1000})
 
@@ -178,6 +197,100 @@ def train_step(torch, n: int, device: str, rank: int, reduced: bool,
     return out
 
 
+def tp_prefill(torch, n: int, device: str, rank: int, reduced: bool) -> dict:
+    """Part 3 (module docstring); rank 0 returns the gate's deviations."""
+    import torch.distributed as dist
+
+    from chip_smoke import kernel_total, logit_stats, profiled
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import (attention, forward, init_params,
+                                    make_batch)
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.sharding import place, rules
+    from unittest import mock
+
+    cfg = configs.get_config(PREFILL["arch"])
+    if reduced:
+        cfg = configs.reduced(cfg, dtype="bfloat16", n_layers=5)
+    cfg = dataclasses.replace(cfg, attention_impl="pallas")
+    seq = 64 if reduced else PREFILL["seq"]
+    batch = make_batch(cfg, PREFILL["batch"], seq, seed=0, device=device)
+
+    def model():
+        return init_params(cfg, torch.Generator(device).manual_seed(0),
+                           device=device)
+
+    out, one = {}, {}
+    if rank == 0:
+        m = model()
+        with torch.no_grad():
+            one["reference"] = forward(dataclasses.replace(
+                cfg, attention_impl="reference"), m, batch)
+            with mock.patch.object(attention, "flash_ops", types.SimpleNamespace(
+                    flash_attention=fa_ref.flash_attention)):
+                one["floor"] = forward(cfg, m, batch)
+            # the model's own bf16 sensitivity, printed beside the gate:
+            # its embeddings moved by one bf16 unit roundoff (2^-8)
+            noise = torch.randn(m.embed.shape, device=device,
+                                generator=torch.Generator(device)
+                                .manual_seed(1))
+            m.embed.mul_(1 + 2.0 ** -8 * noise)
+            one["moved"] = forward(cfg, m, batch)
+        del m
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_local_mesh(1, n, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    m = place.distribute_model(model(), rules.param_specs(
+        cfg, param_shapes(cfg), mesh, training=False), mesh)
+    with torch.no_grad():
+        logits = forward(cfg, m, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(cfg, m, batch, last_only=True)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        by_kernel, out["busy_share"] = profiled(
+            torch, lambda: forward(cfg, m, batch, last_only=True))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["nccl_ms"], out["nccl_launches"] = kernel_total(by_kernel, "nccl")
+    if rank == 0:
+        tp_dev = logit_stats(torch, logits, one["reference"])
+        floor = logit_stats(torch, one["floor"], one["reference"])
+        out["gate"] = {"tp": tp_dev[:2], "floor": floor[:2],
+                       "std": floor[3], "mean_ratio": (
+                           tp_dev[1] / floor[1] if floor[1] else None)}
+        out["embed_ulp_moved"] = logit_stats(torch, one["moved"],
+                                             one["reference"])[:2]
+    del m, logits, one
+    torch.cuda.empty_cache()
+
+    # in f32 at the cut of chip_smoke's phase 15: the placed model's logits
+    # against one card's, on the same split-TF32 kernel
+    f32 = dataclasses.replace(cfg, dtype="float32", n_layers=min(
+        cfg.n_layers, PREFILL["f32_layers"]))
+    f32_batch = make_batch(f32, PREFILL["batch"], seq, seed=0, device=device)
+    whole = None
+    with torch.no_grad():
+        if rank == 0:
+            m = init_params(f32, torch.Generator(device).manual_seed(0),
+                            device=device)
+            whole = forward(f32, m, f32_batch)
+            del m
+        dist.barrier()
+        m = place.distribute_model(init_params(
+            f32, torch.Generator(device).manual_seed(0), device=device),
+            rules.param_specs(f32, param_shapes(f32), mesh, training=False),
+            mesh)
+        logits = forward(f32, m, f32_batch)
+    if rank == 0:
+        out["f32_max_abs_diff"] = float((logits - whole).abs().max())
+        out["f32_mean_abs_diff"] = float((logits - whole).abs().mean())
+    return out
+
+
 def worker(args) -> int:
     import torch
     import torch.distributed as dist
@@ -202,15 +315,21 @@ def worker(args) -> int:
            "cases": tp_cases(torch, args.cards, args.device)}
     out["train"] = train_step(torch, args.cards, args.device, args.rank,
                               args.reduced, tmp)
+    out["prefill"] = tp_prefill(torch, args.cards, args.device, args.rank,
+                                args.reduced)
     dist.barrier()
     dist.destroy_process_group()
     (tmp / f"rank{args.rank}.json").write_text(json.dumps(out))
     return 0
 
 
-def check(results: list) -> list:
-    """The failed checks of part 1, and of part 2's first loss (within
-    1e-2 relative: bf16 partial sums meet in another order)."""
+def check(results: list, gate: bool = True) -> list:
+    """The failed checks of part 1, of part 2's first loss (within 1e-2
+    relative: bf16 partial sums meet in another order), of part 3's f32
+    logits (within 1e-3) and, with ``gate``, of its bf16 gate (the mean
+    deviation within 1.1 times the floor's, the largest within 5% of the
+    logits' std or 1.5 times the floor's largest; on the CPU the kernel
+    is its plain version, so there is no floor to hold it to)."""
     bad = []
     for rank, r in enumerate(results):
         for case, c in r["cases"].items():
@@ -222,6 +341,13 @@ def check(results: list) -> list:
     if rel > 1e-2 or not t["losses"][-1] < t["losses"][0]:
         bad.append(f"train: first loss {t['losses'][0]} against "
                    f"{t['plain_first_loss']}, losses {t['losses']}")
+    if results[0]["prefill"]["f32_max_abs_diff"] > 1e-3:
+        bad.append(f"prefill: f32 logits differ by "
+                   f"{results[0]['prefill']['f32_max_abs_diff']}")
+    g = results[0]["prefill"]["gate"]
+    if gate and (g["tp"][1] > 1.1 * g["floor"][1] or g["tp"][0] > max(
+            0.05 * g["std"], 1.5 * g["floor"][0])):
+        bad.append(f"prefill: the bf16 gate failed: {g}")
     return bad
 
 
@@ -266,11 +392,12 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip()
         print(smi)
-    bad = check(results)
+    bad = check(results, gate=args.device == "cuda")
     print(json.dumps({"cards": args.cards, "device": args.device,
                       "backend": results[0]["backend"],
                       "cases": results[0]["cases"],
                       "train": [r["train"] for r in results],
+                      "prefill": [r["prefill"] for r in results],
                       "failed": bad}))
     return 1 if bad else 0
 
