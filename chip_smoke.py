@@ -13,11 +13,11 @@ Phases, in order; any failure exits non-zero and none is caught:
    ``nvcc`` per source, started together), with ``ptxas``'s registers,
    shared memory and spills (a spill in any kernel fails the phase); the
    tensor-core flash kernel's shared memory a block at each head_dim it is
-   instantiated for; the count of ``HGMMA`` (warpgroup tensor-core)
-   instructions in the bf16 flash kernel's SASS (all of it, and its
-   instantiations at head_dim 112 and 128) and of ``HMMA`` (``mma.sync``)
-   instructions in the split-TF32 one, by ``cuobjdump -sass``, each of
-   which must be above 0.
+   instantiated for and at head_dims past 128 (its wide kernel); the count
+   of ``HGMMA`` (warpgroup tensor-core) instructions in the bf16 flash
+   kernel's SASS (all of it, its instantiations at head_dim 112 and 128,
+   and its wide kernel) and of ``HMMA`` (``mma.sync``) instructions in the
+   split-TF32 one, by ``cuobjdump -sass``, each of which must be above 0.
 2. Kernel parity: both support-join kernels against their plain PyTorch
    versions on edge-case grids, requiring exact equality (the s-step
    kernel also on slots nonzero in 0.4%, 1% and 12.6% of the sessions,
@@ -25,15 +25,17 @@ Phases, in order; any failure exits non-zero and none is caught:
    kernel also on the sparse grid of ``frontier_cases``: 0, 1, 10 and 100%
    of (prefix, session) pairs nonzero, one prefix in every session among
    empty ones, only the last of W > 1 words set, bit 31 only); both
-   flash-attention kernels (the tensor-core route, bf16 at every head_dim
-   up to 128, and the split-TF32 route, f32 and bf16 past 128) against
-   their plain version on the grids of ``tests/test_kernels.py`` and
-   more, with the tensor-core kernel's edges (ragged 1,000, Lq > Lk,
-   Lq < Lk = 513, GQA 56/8, MQA), its head_dims 16, 32, 48, 80, 96 and
-   112 (zamba2-7b's) and zero-padded 40, 72 and 100, each ragged with
-   Lq < Lk under GQA and over three tiles under MQA, and the split-TF32
-   kernel in both dtypes at 40, 48, 72, 80, 96 and 112 (f32) and, past
-   128, 144, 160, 176, 192, 200, 224, 240 and 256 (200 zero-padded), f32
+   flash-attention kernels (the tensor-core route, bf16 at every head_dim,
+   and the split-TF32 route, f32 at every head_dim) against their plain
+   version on the grids of ``tests/test_kernels.py`` and more, with the
+   tensor-core kernel's edges (ragged 1,000, Lq > Lk, Lq < Lk = 513, GQA
+   56/8, MQA), its head_dims 16, 32, 48, 80, 96 and 112 (zamba2-7b's),
+   zero-padded 40, 72 and 100, and past 128 (its wide kernel) 144, 160,
+   192, 200 (zero-padded), 240, 256, 272, 384, 512, 576 and 1,024, each
+   ragged with Lq < Lk under GQA and over three tiles under MQA; both
+   kernels at 40, 48, 72, 80, 96 and 112 and, past 128, 144, 160, 176,
+   192, 200, 224, 240 and 256 (200 zero-padded); and the split-TF32 kernel
+   in f32 past 256 (its sliced kernel) at 272, 384, 512 and 1,024; f32
    within 2e-5 with TF32 off and bf16 within 2e-2.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
@@ -72,9 +74,11 @@ Phases, in order; any failure exits non-zero and none is caught:
    of outputs the tensor-core kernel rounds unlike the plain version, and
    its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``);
    the tensor-core kernel in bf16 at zamba2-7b's attention shape (head_dim
-   112, phase 15's route); the split-TF32 kernel in bf16 at head_dim 256
-   (its bf16 head_dims are those past 128), bound by the bf16 peak and,
-   beside it, by the TF32 products it issues.
+   112, phase 15's route) and past 128 at 256 and 512 (its wide kernel),
+   and at 256 beside it the split-TF32 library on the same bf16 input,
+   called directly (bf16's route past 128 until the wide kernel; a
+   yardstick never on the path), bound by the TF32 products it issues; the
+   split-TF32 kernel in f32 at head_dim 512 (its sliced kernel).
 9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
    with the numpy engine over the SEQB client's index and the stage-2
    requests, for each heuristic (equal waves at every op); the per-op
@@ -258,6 +262,9 @@ TF32_SPLIT_PRODUCTS = 3
 #: (bf16 is exact in TF32) and two for P.V (f32 p splits, v does not):
 #: 1.5 TF32 products a FLOP on average, QK^T and P.V being half each
 TF32_BF16_PRODUCTS = 1.5
+#: head_dims past 128 at which phase 1 prints the tensor-core wide
+#: kernel's shared memory a block
+WIDE_HEAD_DIMS = (144, 160, 192, 208, 240, 256, 272, 384, 512, 576, 1024)
 
 
 # ---------------------------------------------------------------------------
@@ -850,8 +857,8 @@ FLASH_GRID = [(1, 2, 2, 128, 128, 64), (2, 4, 2, 128, 128, 64),
 FLASH_TC_EDGES = [(1, 4, 2, 1000, 1000, 128), (1, 4, 2, 300, 100, 128),
                   (1, 2, 2, 200, 513, 128), (1, 56, 8, 300, 300, 128),
                   (2, 8, 1, 300, 300, 64), (513, 128, 8, 129, 129, 64)]
-#: head_dims past the first four, in both dtypes (bf16 up to 128 takes the
-#: tensor-core kernel, the rest the split-TF32 one): 48, 80, 96 and 112
+#: head_dims past the first four, in both dtypes (bf16 takes the
+#: tensor-core kernel, f32 the split-TF32 one): 48, 80, 96 and 112
 #: (zamba2-7b's) by their own instantiations, 40 and 72 zero-padded to 48
 #: and 80; past 128, in two output chunks a q tile, 144, 160, 176, 192,
 #: 224, 240 and 256 by their own and 200 zero-padded to 208; ragged 130,
@@ -863,10 +870,19 @@ FLASH_ANY_D = [(1, 2, 2, 130, 130, d)
        (1, 2, 2, 70, 200, 256), (2, 8, 2, 100, 100, 256)]
 #: bf16 only, the tensor-core kernel at every head_dim but 64 and 128:
 #: its instantiations at 16, 32, 48, 80, 96 and 112 and zero-padded 40, 72
-#: and 100, each ragged with Lq < Lk under GQA 4/2 and over three q and kv
-#: tiles under MQA 8/1
-FLASH_TC_ANY_D = [shape for d in (16, 32, 40, 48, 72, 80, 96, 100, 112)
+#: and 100; past 128 its wide kernel at 144, 160, 192, 240, 256, 272, 384
+#: and 512 (q in shared memory), 576 and 1,024 (q read with each slice of
+#: K) and zero-padded 200; each ragged with Lq < Lk under GQA 4/2 and over
+#: three q tiles (five kv tiles past 128) under MQA 8/1
+FLASH_TC_ANY_D = [shape for d in (16, 32, 40, 48, 72, 80, 96, 100, 112, 144,
+                                  160, 192, 200, 240, 256, 272, 384, 512,
+                                  576, 1024)
                   for shape in ((1, 4, 2, 70, 200, d), (2, 8, 1, 300, 300, d))]
+#: f32 only, the split-TF32 kernel's sliced kernel past head_dim 256: 272
+#: (a last chunk and slice of 16 columns), 384, 512 and 1,024, ragged 130,
+#: and at 512 with Lq < Lk under GQA 8/2
+FLASH_F32_PAST_256 = [(1, 2, 2, 130, 130, d) for d in (272, 384, 512, 1024)] \
+    + [(2, 8, 2, 70, 200, 512)]
 #: f32 with TF32 off: both sides are true f32 and differ in summation
 #: order only; bf16: one rounding of the output
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -941,6 +957,10 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
             q, k, v = random_qkv(torch, rng, *shape, dtype)
             for causal in (True, False):
                 parity.check(q, k, v, causal)
+    for shape in FLASH_F32_PAST_256:
+        q, k, v = random_qkv(torch, rng, *shape, torch.float32)
+        for causal in (True, False):
+            parity.check(q, k, v, causal)
     # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D),
     # on each route (the tensor-core kernel reads them through TMA maps),
     # and at zamba2-7b's head_dim
@@ -953,6 +973,28 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
             np.float32)).to(DEVICE, dtype)
         parity.check(x.transpose(1, 2), kv.transpose(1, 2),
                      kv.transpose(1, 2), True)
+
+
+def split_tf32_on_bf16(torch, fa_ops, q, k, v):
+    """Causal attention of bf16 q, k, v (B, H, L, D at a head_dim the
+    split-TF32 library is instantiated for in bf16: a multiple of 16 up to
+    256) by that library, called through ``ops.load("tf32x3")`` directly:
+    bf16 takes the tensor cores, so this is a yardstick never on the path,
+    and it adds to no count."""
+    from repro_torch.kernels._launch import launch_args
+
+    b, hq, lq, d = q.shape
+    out = torch.empty((b, lq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    dev, stream = launch_args(q)
+    err = fa_ops.load("tf32x3").flash_attention_tf32x3_launch(
+        *(t.data_ptr() for t in (q, k, v, out)), 1, b, hq, k.shape[1], lq,
+        k.shape[2], d, 1, d ** -0.5,
+        *(s for t in (q, k, v, out) for s in fa_ops._strides(t)), dev, stream)
+    if err:
+        raise RuntimeError(f"the split-TF32 library on bf16 failed: CUDA "
+                           f"error {err}")
+    return out
 
 
 def sass_listing(lib_path: str) -> str:
@@ -1265,10 +1307,12 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     prefill shape, on the model's layout ((B, S, H, D) viewed as
     (B, H, S, D)): the tensor-core route in bf16, the split-TF32 route in
     f32 (TF32 off for the plain version and SDPA); the tensor-core kernel
-    also with p in fewer bf16 parts (``ops.P_PARTS``) and at zamba2-7b's
-    head_dim 112; the split-TF32 kernel also at head_dims 112 and 256 in
-    f32 and 256 in bf16.  Returns each timing by route, or by a key that
-    names the head_dim."""
+    also with p in fewer bf16 parts (``ops.P_PARTS``), at zamba2-7b's
+    head_dim 112 and past 128 at 256 and 512 (its wide kernel), and at 256
+    beside the split-TF32 library on the same bf16 input (the route bf16
+    took past 128 before; a yardstick, never on the path); the split-TF32
+    kernel also at head_dims 112, 256 and 512 in f32.  Returns each timing
+    by route, or by a key that names the head_dim."""
     from unittest import mock
 
     import torch.nn.functional as F
@@ -1279,12 +1323,11 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # q, k, v read once and out written once
     timing = {}
     # the prefill shape on each route, then in f32 at zamba2-7b's head_dim
-    # 112 and at 256, the split-TF32 kernel's widest instantiation (two
+    # 112, at 256, the split-TF32 kernel's widest instantiation (two
     # output chunks a q tile, each recomputing q.k over all 256 columns;
-    # the bound counts the function's work, once); in bf16 at head_dim
-    # 112, zamba2-7b's serve path (phase 15), on the tensor cores; and in
-    # bf16 at 256 on split TF32: bound by the function's work at the bf16
-    # peak, with the TF32 products it issues beside it
+    # the bound counts the function's work, once), and at 512 (its sliced
+    # kernel); in bf16 at head_dim 112, zamba2-7b's serve path (phase 15),
+    # on the tensor cores, and at 256 and 512 on their wide kernel
     for dtype, peak, products, d, key in (
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, d, None),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, d,
@@ -1295,8 +1338,12 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
              "tf32x3_d256"),
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, 112,
              "tensor_core_d112"),
+            (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, 512,
+             "tf32x3_d512"),
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, 256,
-             "tf32x3_bf16_d256")):
+             "tensor_core_d256"),
+            (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, 512,
+             "tensor_core_d512")):
         flop = 4 * b * h * d * (l * (l + 1) // 2)
         which = fa_ops.route(dtype, d)
         rng = np.random.default_rng(1)
@@ -1346,9 +1393,31 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
         if dtype == torch.float32 and key is None:
             # the CUDA-core design's bound: f32 FMAs at 67 TFLOP/s
             out["ffma_bound_ms"] = bound_ms(n_bytes, flop)[0]
-        if which == "tf32x3" and dtype == torch.bfloat16:
-            out["issued_bound_ms"] = bound_ms(
+        if key == "tensor_core_d256":
+            # the split-TF32 library on the same bf16 input, called directly
+            # (bf16's route past 128 until the wide kernel): held against
+            # the plain version, timed in the same run, bound by the TF32
+            # products it issues
+            want = fa_ref.flash_attention(q, k, v)
+            got = split_tf32_on_bf16(torch, fa_ops, q, k, v)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = FLASH_TOL["bfloat16"]
+            if bool(((got.float() - want.float()).abs()
+                     > tol + tol * want.float().abs()).any()):
+                raise AssertionError(f"the split-TF32 library on bf16 at D "
+                                     f"{d} differs from the plain version "
+                                     f"(max abs err {err})")
+            del got, want
+            out["tf32x3_ms"] = time_ms(
+                torch, lambda a=qkv: split_tf32_on_bf16(torch, fa_ops, *a))
+            out["tf32x3_issued_bound_ms"] = bound_ms(
                 n_bytes, TF32_BF16_PRODUCTS * flop, PEAK_TF32_FLOP_PER_S)[0]
+            print(f"split-TF32 library on the same bf16 input (a yardstick, "
+                  f"never on the path): {out['tf32x3_ms']:.4f} ms, max abs "
+                  f"err {err:.3e} from the plain version; bound by the TF32 "
+                  f"products it issues ({TF32_BF16_PRODUCTS} a FLOP) "
+                  f"{out['tf32x3_issued_bound_ms']:.4f} ms [{card}]")
         out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
                    dtype=str(dtype).split(".")[-1], rounding_share=rounding,
                    tflop_s=flop / out["ms"] / 1e9,
@@ -1364,10 +1433,6 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
               f"{peak:.3g} FLOP/s, {n_bytes} B)"
               + (f"; f32 FMA bound {out['ffma_bound_ms']:.4f} ms"
                  if "ffma_bound_ms" in out else "")
-              + (f"; bound by the TF32 products it issues "
-                 f"({TF32_BF16_PRODUCTS} a FLOP at {PEAK_TF32_FLOP_PER_S:.3g} "
-                 f"FLOP/s) {out['issued_bound_ms']:.4f} ms"
-                 if "issued_bound_ms" in out else "")
               + (f"; {rounding:.5f} of its bf16 outputs round unlike the "
                  f"plain version's" if rounding is not None else "")
               + f" [{card}]")
@@ -3688,10 +3753,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: ptxas spilled registers")
     print(f"kernel build + load, {len(libs)} libraries: {build_s:.2f} s")
     tc = libs["tensor_core"]
-    for d in fa_ops.TENSOR_CORE_HEAD_DIMS:
+    for d in (*fa_ops.TENSOR_CORE_HEAD_DIMS, *WIDE_HEAD_DIMS):
         print(f"tensor-core flash kernel at head_dim {d}: "
               f"{tc.flash_attention_wgmma_smem_bytes(d)} B of dynamic "
-              f"shared memory a block")
+              f"shared memory a block"
+              + (" (the wide kernel)" if d > fa_ops.TENSOR_CORE_HEAD_DIMS[-1]
+                 else ""))
     # the tensor-core instructions each flash kernel must hold: warpgroup
     # products (HGMMA) in the bf16 kernel, mma.sync (HMMA) in split TF32
     tc_instructions = {}
@@ -3703,10 +3770,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"the {which} flash kernel has no {opcode} "
                                  f"instruction")
     # the instantiations (head_dim, bf16 parts of p) on the serve paths:
-    # zamba2-7b's head_dim 112 and the dense configs' 128, both 3 parts
+    # zamba2-7b's head_dim 112 and the dense configs' 128, both 3 parts;
+    # and the wide kernel of every head_dim past 128
     hgmma = {d: sass_count(tc._name, "HGMMA",
                            f"flash_attention_wgmma_kernelILi{d}ELi3E")
              for d in (112, 128)}
+    hgmma["wide"] = sass_count(tc._name, "HGMMA",
+                               "flash_attention_wgmma_wide_kernelILi3E")
     print("flash_attention SASS by instantiation: " + ", ".join(
         f"head_dim {d}: {n} HGMMA" for d, n in hgmma.items()))
     if not all(hgmma.values()):
@@ -4122,8 +4192,8 @@ def main(argv=None) -> int:
             **({"rounding_share": t["rounding_share"]}
                if t["rounding_share"] is not None else {}),
             "tensor_core_instructions": tc_instructions[which],
-            **{key: t[key] for key in ("ffma_bound_ms", "issued_bound_ms",
-                                       "p_parts_ms", "p_parts_rounding_share")
+            **{key: t[key] for key in ("ffma_bound_ms", "p_parts_ms",
+                                       "p_parts_rounding_share")
                if key in t},
         })
     # each family's path (zamba2's too) launches the tensor-core kernel;
@@ -4153,6 +4223,7 @@ def main(argv=None) -> int:
         hybrid_prefill_flash_ms=hybrid["prefill_flash_ms"],
         hybrid_decode_busy_share=hybrid["decode_busy_share"],
         d112_tensor_core_instructions=hgmma[112],
+        wide_tensor_core_instructions=hgmma["wide"],
         # training launches no flash kernel (it has no backward); the
         # trained model's prefill_step launches it once a layer
         train_launches={impl: r["launches"]
@@ -4182,17 +4253,20 @@ def main(argv=None) -> int:
             "decode_busy_share")},
         ssm_slstm_share=ssm_families["ssm"]["slstm_share"])
     # each kernel at its other timed shapes: the tensor-core one at
-    # zamba2-7b's head_dim 112; the split-TF32 one in f32 at head_dims 112
-    # and 256 and in bf16 at 256
+    # zamba2-7b's head_dim 112 and at 256 and 512 (with the split-TF32
+    # library on its bf16 input at 256 beside it); the split-TF32 one in
+    # f32 at head_dims 112, 256 and 512
     for i, key, prefix in ((-2, "tensor_core_d112", "d112"),
+                           (-2, "tensor_core_d256", "d256"),
+                           (-2, "tensor_core_d512", "d512"),
                            (-1, "tf32x3_d112", "d112"),
                            (-1, "tf32x3_d256", "d256"),
-                           (-1, "tf32x3_bf16_d256", "bf16_d256")):
+                           (-1, "tf32x3_d512", "d512")):
         t = flash[key]
         kernels[i].update({f"{prefix}_{k}": t[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "bound_share", "tflop_s", "rounding_share", "issued_bound_ms",
-            "shape") if t.get(k) is not None})
+            "bound_share", "tflop_s", "rounding_share", "tf32x3_ms",
+            "tf32x3_issued_bound_ms", "shape") if t.get(k) is not None})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
 // Forward flash attention for Hopper (sm_90a) on the tensor cores in split
 // TF32, bound to Python through ctypes: the route of float32 at every
-// head_dim and of bfloat16 at every head_dim but 64 and 128, which run on
-// flash_attention_wgmma.cu.  It is instantiated at every multiple of 16 up
-// to 256, in both types; the wrapper zero-pads a head_dim between them up
-// to the next one (QK^T reads 16 head_dim columns at a time).
+// head_dim (bfloat16 runs on flash_attention_wgmma.cu).  It is
+// instantiated at every multiple of 16 up to 256, in both types (bfloat16
+// is kept only to be timed against the tensor-core kernel); past 256 one
+// sliced kernel takes any multiple of 16 at run time, in float32.  The
+// wrapper zero-pads a head_dim between them up to the next one (QK^T reads
+// 16 head_dim columns at a time).
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
 // src/repro/kernels/flash_attention/flash_attention.py, and computes what
@@ -67,6 +69,18 @@
 // own chunk of O, reading only that chunk of V.  O's registers stay those
 // of D 128, and QK^T's work doubles.  The q tile and the 32-row K tiles
 // then take 93-173 KB of shared memory, one block an SM from D 192 up.
+//
+// Past head_dim 256 (the sliced kernel, float32) the output's head_dim is
+// cut into chunks of 128 columns on the grid, the last one narrower (a
+// multiple of 16), and QK^T runs over the head_dim in slices of 64
+// columns (the last narrower), summing S in registers over a kv tile's
+// slices, so shared memory no longer bounds D.  Each cp.async stage holds
+// one slice of q (64 rows) and of K (32 rows), q read again from L2 for
+// every kv tile, and V's chunk of a tile: 93 KB, two blocks an SM.  (With
+// q kept in shared memory, 206 KB at D 512, one block of 4 warps ran on
+// an SM, and it was slower; PERF.md, Findings.)
+// Instantiated once: the slice width is fixed, the number of slices a
+// run-time count.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -491,6 +505,270 @@ cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
+// -- the sliced kernel: float32 past head_dim 256 --------------------------
+
+constexpr int kSliceColumns = 64;               // QK^T columns a slice
+constexpr int kSliceRow = kSliceColumns + 16;   // 16 mod 32 words: no conflict
+constexpr int kSlicedBlockK = 32;               // kv rows a tile
+constexpr int kSlicedOut = 128;                 // output columns a block
+constexpr int kSlicedVRow = kSlicedOut + 4;
+// a stage: K's slice of a tile, then q's slice of the block's rows
+constexpr int kSlicedKWords = kSlicedBlockK * kSliceRow;
+constexpr int kSlicedStageWords = kSlicedKWords + kBlockQ * kSliceRow;
+constexpr int kSlicedVWords = kSlicedBlockK * kSlicedVRow;
+constexpr size_t kSlicedSmemBytes =
+    sizeof(float) * 2 * (kSlicedStageWords + kSlicedVWords);
+
+// rows [row0, row0 + rows) of `cols` float32 columns (a multiple of 4)
+// from `src`, rows `stride` apart, into shared rows of `dst_row` floats by
+// cp.async, 16 bytes (kVec16) or 4 a copy; rows at or past L are zero
+template <bool kVec16>
+__device__ __forceinline__ void load_columns(float* dst, int dst_row,
+                                             const float* src,
+                                             long long stride, int row0,
+                                             int rows, int L, int cols) {
+  constexpr int kChunk = kVec16 ? 4 : 1;
+  const int per_row = cols / kChunk;
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = i % per_row * kChunk;
+    const bool ok = row0 + r < L;
+    const float* p = src + (ok ? (long long)(row0 + r) * stride + c : 0);
+    if constexpr (kVec16)
+      cp_async16(dst + r * dst_row + c, p, ok);
+    else
+      cp_async4(dst + r * dst_row + c, p, ok);
+  }
+}
+
+// two blocks an SM: 93 KB of shared memory a block
+template <bool kVec16>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_tf32x3_sliced_kernel(const float* __restrict__ q,
+                                     const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     float* __restrict__ out, Strides qs,
+                                     Strides ks, Strides vs, Strides os,
+                                     int Hq, int group, int Lq, int Lk, int D,
+                                     int q_tiles, int causal,
+                                     float scale_log2) {
+  constexpr int BK = kSlicedBlockK;
+  constexpr int NT = BK / 8;          // score n-tiles of a warp
+  constexpr int ND = kSlicedOut / 8;  // output n-tiles of a warp
+  const int slices = (D + kSliceColumns - 1) / kSliceColumns;
+  extern __shared__ __align__(16) float smem[];
+  float* s_k = smem;                          // two stages, q's slice in each
+  float* s_v = s_k + 2 * kSlicedStageWords;   // two stages
+
+  // chunks fastest, then q tiles: a q tile's chunks run side by side
+  const int n_chunks = (D + kSlicedOut - 1) / kSlicedOut;
+  const int chunk = (int)(blockIdx.x % n_chunks);
+  const int tile = (int)(blockIdx.x / n_chunks);
+  const int bh = tile / q_tiles;
+  const int qt = q_tiles - 1 - tile % q_tiles;
+  const int b = bh / Hq, h = bh % Hq, hk = h / group;
+  const int q0 = qt * kBlockQ;
+  const int c_cols = min(kSlicedOut, D - chunk * kSlicedOut);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;       // mma group, thread in group
+  const int offset = Lk - Lq;                 // end-aligned causal offset
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h + chunk * kSlicedOut;
+  float* ob = out + b * os.b + h * os.h + chunk * kSlicedOut;
+
+  int n_tiles = (Lk + BK - 1) / BK;
+  if (causal) {
+    const int last_visible = min(q0 + kBlockQ, Lq) - 1 + offset;
+    n_tiles = last_visible < 0 ? 0 : min(n_tiles, last_visible / BK + 1);
+  }
+  const int n_steps = n_tiles * slices;       // (tile, slice) in order
+  // step i's K and q slices into stage i & 1; its tile's V chunk with the
+  // tile's first slice
+  auto load_step = [&](int i) {
+    const int j = i / slices, sl = i % slices;
+    const int c = sl * kSliceColumns;
+    const int cols = min(kSliceColumns, D - c);
+    float* stage = s_k + (i & 1) * kSlicedStageWords;
+    load_columns<kVec16>(stage, kSliceRow, kb + c, ks.s, j * BK, BK, Lk, cols);
+    load_columns<kVec16>(stage + kSlicedKWords, kSliceRow, qb + c, qs.s, q0,
+                         kBlockQ, Lq, cols);
+    if (sl == 0)
+      load_columns<kVec16>(s_v + (j & 1) * kSlicedVWords, kSlicedVRow, vb,
+                           vs.s, j * BK, BK, Lk, c_cols);
+  };
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};    // rows g and g + 8
+  float l_part[2] = {0.f, 0.f};               // this thread's columns only
+  const int row_lo = q0 + warp * 16 + g;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    // -- S = Q K^T, a slice of 64 head_dim columns at a time
+    for (int sl = 0; sl < slices; ++sl) {
+      const int i = it * slices + sl;
+      if (i + 1 < n_steps) load_step(i + 1);  // the next step, other stage
+      cp_async_commit();
+      cp_async_wait<1>();                     // this step has landed
+      __syncthreads();
+      const float* stage = s_k + (i & 1) * kSlicedStageWords;
+      const float* q_lo =
+          stage + kSlicedKWords + (warp * 16 + g) * kSliceRow + 4 * t;
+      const float* q_hi = q_lo + 8 * kSliceRow;
+      const float* Ks = stage + g * kSliceRow + 4 * t;
+      const int groups = min(kSliceColumns, D - sl * kSliceColumns) / 16;
+      for (int dg = 0; dg < groups; ++dg) {
+        const float4 qa = *reinterpret_cast<const float4*>(q_lo + dg * 16);
+        const float4 qc = *reinterpret_cast<const float4*>(q_hi + dg * 16);
+        const float a_raw[2][4] = {{qa.x, qc.x, qa.y, qc.y},
+                                   {qa.z, qc.z, qa.w, qc.w}};
+        uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+        for (int ksi = 0; ksi < 2; ++ksi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split(a_raw[ksi][e], a_big[ksi][e], a_small[ksi][e]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              Ks + n * 8 * kSliceRow + dg * 16);
+          const float b_raw[2][2] = {{kk.x, kk.y}, {kk.z, kk.w}};
+#pragma unroll
+          for (int ksi = 0; ksi < 2; ++ksi) {
+            uint32_t b_big[2], b_small[2];
+            split(b_raw[ksi][0], b_big[0], b_small[0]);
+            split(b_raw[ksi][1], b_big[1], b_small[1]);
+            mma(s[n], a_small[ksi], b_big[0], b_big[1]);
+            mma(s[n], a_big[ksi], b_small[0], b_small[1]);
+            mma(s[n], a_big[ksi], b_big[0], b_big[1]);
+          }
+        }
+      }
+      if (sl + 1 < slices) __syncthreads();   // the stage is free again
+    }
+
+    // -- online softmax in registers, base 2, as in the kernel above
+    const bool edge = k0 + BK > Lk ||
+                      (causal && k0 + BK - 1 > q0 + warp * 16 + offset);
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int col = k0 + 8 * n + 2 * t + (e & 1);
+          const int row = row_lo + 8 * (e >> 1);
+          if (col >= Lk || (causal && col > row + offset)) x = -INFINITY;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      m_safe[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+      alpha[i] = ex2(m_run[i] - m_safe[i]);   // 0 while m_run is -inf
+      m_run[i] = mx[i];
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(s[n][e] - m_safe[e >> 1]);   // 0 where masked
+        s[n][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_part[i] = l_part[i] * alpha[i] + sum[i];
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // -- O += P V over the chunk's live columns, P's C fragment as A
+    const float* Vs = s_v + (it & 1) * kSlicedVWords + 2 * t * kSlicedVRow + g;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float p_raw[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+      uint32_t p_big[4], p_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(p_raw[e], p_big[e], p_small[e]);
+      const float* v0 = Vs + n * 8 * kSlicedVRow;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        if (8 * j >= c_cols) break;
+        const float b0 = v0[j * 8], b1 = v0[kSlicedVRow + j * 8];
+        uint32_t v_big[2], v_small[2];
+        split(b0, v_big[0], v_small[0]);
+        split(b1, v_big[1], v_small[1]);
+        mma(o[j], p_small, v_big[0], v_big[1]);
+        mma(o[j], p_big, v_small[0], v_small[1]);
+        mma(o[j], p_big, v_big[0], v_big[1]);
+      }
+    }
+    __syncthreads();                          // both stages free again
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_part[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row_lo + 8 * i;
+    if (row >= Lq) continue;
+    const float inv = 1.f / (l == 0.f ? 1.f : l);  // a masked row gives 0
+    float* orow = ob + (long long)row * os.s + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      if (8 * j >= c_cols) break;
+      orow[j * 8] = o[j][2 * i] * inv;
+      orow[j * 8 + 1] = o[j][2 * i + 1] * inv;
+    }
+  }
+}
+
+template <bool kVec16>
+cudaError_t launch_sliced(const void* q, const void* k, const void* v,
+                          void* out, Strides qs, Strides ks, Strides vs,
+                          Strides os, int B, int Hq, int Hkv, int Lq, int Lk,
+                          int D, int causal, float scale_log2,
+                          cudaStream_t stream) {
+  const auto kernel = flash_attention_tf32x3_sliced_kernel<kVec16>;
+  constexpr size_t smem = kSlicedSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int q_tiles = (Lq + kBlockQ - 1) / kBlockQ;
+  const long long blocks = (long long)B * Hq * q_tiles *
+                           ((D + kSlicedOut - 1) / kSlicedOut);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), qs, ks, vs, os,
+      Hq, Hq / Hkv, Lq, Lk, D, q_tiles, causal, scale_log2);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p, const Strides& s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 &&
          s.h % 4 == 0 && s.s % 4 == 0;
@@ -502,7 +780,8 @@ extern "C" {
 
 // Returns the CUDA error of the launch (0 on success); the kernel runs
 // asynchronously on `stream` of card `device`.  dtype: 0 float32, 1
-// bfloat16, q, k, v and out alike; D a multiple of 16 up to 256.
+// bfloat16, q, k, v and out alike; D a positive multiple of 16, up to 256
+// in bfloat16.
 // Strides are in elements, in the order (batch, head, position) for q, k,
 // v and out; head_dim is contiguous.  B * Hq, Lq and Lk must be positive.
 // float32 q, k and v are copied 16 bytes at a time when each base is
@@ -525,6 +804,13 @@ int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v,
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   const bool vec16 = aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs);
   const float scale_log2 = (float)((double)sm_scale * 1.4426950408889634);
+  if (D > 256 && D % 16 == 0 && dtype == 0)
+    return (int)(vec16 ? launch_sliced<true>(q, k, v, out, qs, ks, vs, os, B,
+                                             Hq, Hkv, Lq, Lk, D, causal,
+                                             scale_log2, stream)
+                       : launch_sliced<false>(q, k, v, out, qs, ks, vs, os, B,
+                                              Hq, Hkv, Lq, Lk, D, causal,
+                                              scale_log2, stream));
   switch (dtype) {
     case 0:
       return (int)launch_dim<float>(D, vec16, q, k, v, out, qs, ks, vs, os, B,

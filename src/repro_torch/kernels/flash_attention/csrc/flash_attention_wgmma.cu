@@ -1,13 +1,14 @@
 // Forward flash attention on Hopper's tensor cores (sm_90a), bf16 at every
-// head_dim that is a multiple of 16 up to 128, bound to Python through
-// ctypes.  The wrapper (ops.py) runs any other head_dim up to 128 on
-// copies zero-padded to the next multiple of 16.
+// head_dim that is a multiple of 16, bound to Python through ctypes.  The
+// wrapper (ops.py) runs any other head_dim on copies zero-padded to the
+// next multiple of 16.  Up to 128 the kernel is instantiated at each such
+// head_dim; past it one wide kernel takes the head_dim at run time (the
+// second design below).
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _kernel) of
-// src/repro/kernels/flash_attention/flash_attention.py for bf16 inputs up
-// to head_dim 128, and computes what that kernel computes (and what
-// flash_attention_tf32x3.cu, which keeps float32 and bf16 past 128,
-// computes):
+// src/repro/kernels/flash_attention/flash_attention.py for bf16 inputs,
+// and computes what that kernel computes (and what
+// flash_attention_tf32x3.cu, which keeps float32, computes):
 //
 //   out[b,h,r] = sum_c p[r,c] v[b,h/group,c] / sum_c p[r,c]
 //   p[r,c]     = exp(q[b,h,r] . k[b,h/group,c] * sm_scale - m[r]) where
@@ -33,10 +34,10 @@
 // out, about 500 FLOP a byte, above the H100's ridge of about 295: the
 // tensor cores' 989 TFLOP/s bound it (0.139 ms), not memory.  At
 // zamba2-7b's shared attention (the same shape at D 112) it is 1.2032e11
-// FLOP against 235 MB, 0.1217 ms.
+// FLOP against 235 MB, 0.1217 ms; at D 256, 2.7501e11 FLOP, 0.2781 ms.
 //
-// Design: the shape of a Hopper GEMM with the online softmax between its
-// two products.
+// Design (head_dim up to 128): the shape of a Hopper GEMM with the online
+// softmax between its two products.
 //  * One block of 256 threads owns a 128-row q tile of one (b, h): two
 //    warpgroups of 64 rows each.  The grid
 //    is 1-D over (B * Hq) x q tiles (up to 2^31 - 1 blocks), the q tile
@@ -85,6 +86,41 @@
 // warpgroups taking turns on the tensor cores; a producer warpgroup with
 // setmaxnreg; a third stage.  ptxas held 288- and 384-thread blocks to 168
 // registers and serialized the wgmma of most overlapped forms.
+//
+// Past head_dim 128 (the wide kernel) that tiling does not scale: at D 256
+// a 128-row tile is 64 KB, and q with a 2-stage K and V ring would take
+// 320 KB of the SM's 227.  So:
+//  * The output's head_dim is cut into chunks of 128 columns (the last
+//    one narrower, a multiple of 16) on the grid, one a block, chunks
+//    varying fastest.  A block computes S = Q K^T over the whole head_dim
+//    and accumulates only its chunk of O, reading only that chunk of V:
+//    O stays 2 regions (64 f32 registers a thread), as at D 128, and
+//    QK^T is issued once a chunk (at D 256 the products issued are 1.25x
+//    a one-chunk design's).
+//  * kv tiles of 64 rows (S is wgmma.m64n64k16, 32 f32 a thread; P.V 4
+//    k-steps a part and region), tiles of 64 rows x 64 columns (8 KB) a
+//    region of K and V.
+//  * q stays in shared memory (one 128-row region of 16 KB per 64
+//    columns) up to D 512 (128 KB); past it q is read again from L2 with
+//    each slice of K.  K is read in slices: the whole tile up to D 256
+//    (3 or 4 regions, 32 KB at 4), 2 regions (128 columns) past it, into
+//    a 2-stage ring; S accumulates in registers over a tile's slices, so
+//    shared memory no longer bounds D.  V's chunk has a 2-stage ring of
+//    its own, each ring with its own mbarriers for full and free slots.
+//    At D 256: 64 KB of q + 2 x 32 KB of K + 2 x 16 KB of V, one block an
+//    SM.
+//  * The slice's regions are a template parameter and QK^T runs all their
+//    k-steps, the zero columns past D included (the last slice's regions
+//    wholly past D arrive as zeros too): with a run-time count of k-steps
+//    in a wgmma group, or an accumulator of S live across thread 0's
+//    copies, ptxas serialized the wgmma ("WG.AR in divergent path") and
+//    D 256 took 2.18 ms, not 1.71 (PERF.md, Findings).  So each slice's
+//    products are summed from zero and added to S in registers.  P.V runs
+//    the chunk's regions at N = 64 (the columns past D arrive as zeros and
+//    are not stored).
+//  * Thread 0 issues every copy, as above: K slice i + 1 as slice i is
+//    used (after every warp has freed slice i - 1), V's chunk of tile
+//    j + 1 as tile j starts.
 // A wait on an mbarrier that has not completed after about ten seconds
 // traps, so a fault in the pipeline ends the launch with an error instead
 // of hanging the card.
@@ -234,6 +270,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[32] (+)= A (64 x 16, K-major in shared memory) . B (16 x 64, K-major
+// in shared memory); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[0 .. N/2) (+)= A (64 x 16 bf16 in registers) . B (16 x N, MN-major in
 // shared memory), N 16, 32, 48 or 64; scale_d = 0 overwrites d.  The
 // accumulator layout of m64nN is that of m64n64 cut to its first N
@@ -320,21 +377,20 @@ __device__ __forceinline__ void split_bf16(float x, float y,
 }
 
 // O = alpha O + P V over one region of N columns of D, the V tile's
-// region at shared address v_region: the tensor cores sum this tile's
-// products, smallest part first, from zero into t, and t joins O in f32
-// (a sum chained through every tile's products drifts more).  o[0 .. N/2)
-// are the region's live accumulator elements
-template <int N, int kParts>
-__device__ __forceinline__ void pv_region(float (&o)[32],
-                                          const uint32_t (&pp)[8][4][kParts],
-                                          const float (&alpha)[2],
-                                          uint32_t v_region) {
+// region (kSteps x 16 rows) at shared address v_region: the tensor cores
+// sum this tile's products, smallest part first, from zero into t, and t
+// joins O in f32 (a sum chained through every tile's products drifts
+// more).  o[0 .. N/2) are the region's live accumulator elements
+template <int N, int kParts, int kSteps = 8>
+__device__ __forceinline__ void pv_region(
+    float (&o)[32], const uint32_t (&pp)[kSteps][4][kParts],
+    const float (&alpha)[2], uint32_t v_region) {
   float t[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) t[i] = 0.f;   // overwritten (scale_d = 0)
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
     const uint64_t dv = smem_desc(v_region + kk * 16 * 128, 1024, 1024);
 #pragma unroll
     for (int part = kParts - 1; part >= 0; --part) {
@@ -546,6 +602,299 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// -- the wide kernel: head_dim past 128, a multiple of 16, at run time ----
+
+constexpr int kWideBlockK = 64;                  // kv rows a tile
+constexpr int kQRegionBytes = kBlock * 128;      // 128 q rows x 64 columns
+constexpr int kKVRegionBytes = kWideBlockK * 128;  // 64 kv rows x 64 columns
+constexpr int kChunkColumns = 128;               // output columns a block
+constexpr int kChunkRegions = kChunkColumns / 64;
+constexpr int kMaxResidentRegions = 8;           // q in shared memory to D 512
+
+// Shared memory of the wide kernel at head_dim D, the same on the host and
+// the card: q (when it stays), a 2-stage ring of K slices (with q's slice
+// when q does not stay), a 2-stage ring of V chunks, then 9 barriers.  A
+// slice is the whole kv tile up to D 256 (3 or 4 regions), 2 regions past
+// it; the last slice's regions past D arrive as zeros (TMA boxes wholly
+// past D are filled with zeros as those partly past it are).
+__host__ __device__ constexpr int wide_slice_regions(int D) {
+  return (D + 63) / 64 <= 4 ? (D + 63) / 64 : 2;
+}
+
+struct WideLayout {
+  int slice_regions;    // regions of K a ring slot holds
+  int slices;           // slices a kv tile
+  int regions;          // regions of the slices: D's, rounded up
+  bool q_resident;
+  int q_bytes, k_stage_bytes, v_stage_bytes;
+
+  __host__ __device__ explicit WideLayout(int D)
+      : slice_regions(wide_slice_regions(D)),
+        slices(((D + 63) / 64 + slice_regions - 1) / slice_regions),
+        regions(slices * slice_regions),
+        q_resident(regions <= kMaxResidentRegions),
+        q_bytes(q_resident ? regions * kQRegionBytes : 0),
+        k_stage_bytes(slice_regions *
+                      (kKVRegionBytes + (q_resident ? 0 : kQRegionBytes))),
+        v_stage_bytes(kChunkRegions * kKVRegionBytes) {}
+
+  __host__ __device__ int smem_bytes() const {
+    return 1024 + q_bytes + kStages * (k_stage_bytes + v_stage_bytes) +
+           8 * (1 + 4 * kStages);
+  }
+};
+
+// the most any head_dim asks for: q resident at D 512
+constexpr int kWideMaxSmem = 1024 + kMaxResidentRegions * kQRegionBytes +
+                             kStages * (2 * kKVRegionBytes +
+                                        kChunkRegions * kKVRegionBytes) +
+                             8 * (1 + 4 * kStages);
+static_assert(kWideMaxSmem <= 232448, "shared memory of a block");
+
+// The accumulator layouts are those of the kernel above, cut to the
+// m64n64 tile: S element j of a thread sits at row 16 w + lane / 4 +
+// 8 ((j / 2) % 2) and kv column 8 (j / 4) + 2 (lane % 4) + j % 2.
+template <int kParts, int kSliceRegions>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  __nv_bfloat16* __restrict__ out, Strides os,
+                                  int Hq, int group, int Lq, int Lk, int D,
+                                  int causal, float scale_log2) {
+  const WideLayout lay(D);    // lay.slice_regions == kSliceRegions
+  const int n_chunks = (D + kChunkColumns - 1) / kChunkColumns;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;
+  const uint32_t s_k = s_q + lay.q_bytes;                       // kStages
+  const uint32_t s_v = s_k + kStages * lay.k_stage_bytes;       // kStages
+  const uint32_t bar_q = s_v + kStages * lay.v_stage_bytes;
+  const uint32_t bar_k = bar_q + 8;                  // kStages: K landed
+  const uint32_t bar_k_free = bar_k + 8 * kStages;   // kStages: K read
+  const uint32_t bar_v = bar_k_free + 8 * kStages;   // kStages: V landed
+  const uint32_t bar_v_free = bar_v + 8 * kStages;   // kStages: V read
+
+  // a 1-D grid over (B * Hq) x q tiles x chunks, the chunk varying fastest
+  // and then the q tile, longest first
+  const int q_tiles = (Lq + kBlock - 1) / kBlock;
+  const int chunk = blockIdx.x % n_chunks;
+  const int tile = blockIdx.x / n_chunks;
+  const int bh = tile / q_tiles;
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int hk = h / group;
+  const int q0 = (q_tiles - 1 - tile % q_tiles) * kBlock;
+  const int c0 = chunk * kChunkColumns;              // first output column
+  const int c_cols = min(kChunkColumns, D - c0);     // a multiple of 16
+  const int c_regions = (c_cols + 63) / 64;
+  const int offset = Lk - Lq;                        // end-aligned causal
+  int n_tiles = (Lk + kWideBlockK - 1) / kWideBlockK;
+  if (causal) {
+    const int last_visible = min(q0 + kBlock, Lq) - 1 + offset;
+    n_tiles =
+        last_visible < 0 ? 0 : min(n_tiles, last_visible / kWideBlockK + 1);
+  }
+  const int n_slices = n_tiles * lay.slices;         // K slices in order
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_k_free + 8 * s, kConsumerWarps);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_v_free + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool issuer = threadIdx.x == 0;
+  // K slice i (tile i / slices, slice i % slices) into ring slot i %
+  // kStages, with q's slice when q does not stay, once every warp has
+  // read slice i - kStages
+  auto issue_k = [&](int i) {
+    const int st = i % kStages;
+    if (i >= kStages)
+      mbar_wait(bar_k_free + 8 * st, ((i / kStages) & 1) ^ 1);
+    const int j = i / lay.slices;
+    const int r0 = (i % lay.slices) * kSliceRegions;
+    const uint32_t slot = s_k + st * lay.k_stage_bytes;
+    mbar_expect_tx(bar_k + 8 * st, lay.k_stage_bytes);
+    for (int r = 0; r < kSliceRegions; ++r)
+      tma_load_4d(slot + r * kKVRegionBytes, &tm_k, bar_k + 8 * st,
+                  64 * (r0 + r), j * kWideBlockK, hk, b);
+    if (!lay.q_resident)
+      for (int r = 0; r < kSliceRegions; ++r)
+        tma_load_4d(slot + kSliceRegions * kKVRegionBytes + r * kQRegionBytes,
+                    &tm_q, bar_k + 8 * st, 64 * (r0 + r), q0, h, b);
+  };
+  // V's chunk of tile j into its ring slot, once every warp has read tile
+  // j - kStages's
+  auto issue_v = [&](int j) {
+    const int st = j % kStages;
+    if (j >= kStages)
+      mbar_wait(bar_v_free + 8 * st, ((j / kStages) & 1) ^ 1);
+    mbar_expect_tx(bar_v + 8 * st, c_regions * kKVRegionBytes);
+    for (int r = 0; r < c_regions; ++r)
+      tma_load_4d(s_v + st * lay.v_stage_bytes + r * kKVRegionBytes, &tm_v,
+                  bar_v + 8 * st, c0 + 64 * r, j * kWideBlockK, hk, b);
+  };
+  if (issuer && n_tiles > 0) {
+    if (lay.q_resident) {
+      mbar_expect_tx(bar_q, lay.q_bytes);
+      for (int r = 0; r < lay.regions; ++r)
+        tma_load_4d(s_q + r * kQRegionBytes, &tm_q, bar_q, 64 * r, q0, h, b);
+    }
+    issue_k(0);
+    issue_v(0);
+  }
+  __syncwarp();
+
+  const int wg = warp / 4;
+  const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const uint32_t wg_rows = 64 * wg * 128;   // its 64 rows in a q region
+
+  float o[kChunkRegions][32];
+#pragma unroll
+  for (int r = 0; r < kChunkRegions; ++r)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[r][j] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};   // scaled by sm_scale log2(e)
+  float l_part[2] = {0.f, 0.f};              // this thread's columns only
+
+  if (n_tiles > 0 && lay.q_resident) mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kWideBlockK;
+    if (issuer && j + 1 < n_tiles) issue_v(j + 1);   // while tile j is used
+    __syncwarp();
+
+    // S = Q K^T over the tile's slices of D: each slice's products summed
+    // from zero by the tensor cores, then added to S in registers (an
+    // accumulator live across thread 0's issue would serialize the wgmma)
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    for (int sl = 0; sl < lay.slices; ++sl) {
+      const int i = j * lay.slices + sl;
+      const int st = i % kStages;
+      if (issuer && i + 1 < n_slices) issue_k(i + 1);
+      __syncwarp();
+      mbar_wait(bar_k + 8 * st, (i / kStages) & 1);
+      const uint32_t k_slot = s_k + st * lay.k_stage_bytes;
+      const uint32_t q_slice =
+          (lay.q_resident ? s_q + sl * kSliceRegions * kQRegionBytes
+                          : k_slot + kSliceRegions * kKVRegionBytes) +
+          wg_rows;
+      // every k-step of the slice's regions, zero columns past D included:
+      // a run-time count of k-steps in the group serializes the wgmma
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;   // overwritten (scale_d = 0)
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * kSliceRegions; ++ks)
+        wgmma_m64n64k16_ss(
+            part, smem_desc(q_slice + (ks / 4) * kQRegionBytes + (ks % 4) * 32,
+                            16, 1024),
+            smem_desc(k_slot + (ks / 4) * kKVRegionBytes + (ks % 4) * 32, 16,
+                      1024),
+            ks > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] += part[i];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_k_free + 8 * st);
+    }
+
+    // mask the ragged end and, on tiles crossing the diagonal, the future
+    const int wg_first = q0 + 64 * wg;
+    if (k0 + kWideBlockK > Lk ||
+        (causal && k0 + kWideBlockK - 1 > wg_first + offset)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = k0 + 8 * (i / 4) + col0 + i % 2;
+        const int r = row0 + 8 * ((i / 2) % 2);
+        if (c >= Lk || (causal && c > r + offset)) sc[i] = -INFINITY;
+      }
+    }
+
+    // online softmax, rows row0 (rr 0) and row0 + 8 (rr 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_cur = fmaxf(m_run[rr], mx[rr] * scale_log2);
+      // guard fully masked rows: exp(-inf - -inf) would be NaN
+      m_safe[rr] = m_cur == -INFINITY ? 0.f : m_cur;
+      alpha[rr] =
+          m_run[rr] == -INFINITY ? 0.f : fast_exp2(m_run[rr] - m_safe[rr]);
+      m_run[rr] = m_cur;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -m_safe[(i / 2) % 2]));
+      sum[(i / 2) % 2] += sc[i];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      l_part[rr] = l_part[rr] * alpha[rr] + sum[rr];
+
+    // P's bf16 parts as the A operand: k-step kk takes kv columns 16 kk ..
+    // 16 kk + 15, accumulator elements 8 kk .. 8 kk + 7
+    constexpr int kSteps = kWideBlockK / 16;
+    uint32_t pp[kSteps][4][kParts];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_bf16<kParts>(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1],
+                           pp[kk][e]);
+
+    // O = alpha O + P V over the chunk's regions, 64 columns each
+    const int st = j % kStages;
+    mbar_wait(bar_v + 8 * st, (j / kStages) & 1);
+    const uint32_t v_tile = s_v + st * lay.v_stage_bytes;
+    pv_region<64, kParts, kSteps>(o[0], pp, alpha, v_tile);
+    if (c_regions > 1)
+      pv_region<64, kParts, kSteps>(o[1], pp, alpha, v_tile + kKVRegionBytes);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_v_free + 8 * st);
+  }
+
+  // epilogue: O / l, rounded to bf16, the chunk's columns below D
+  __nv_bfloat16* ob = out + b * os.b + h * os.h + c0;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_part[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = l == 0.f ? 1.f : l;   // a fully masked row gives 0
+    const int r = row0 + 8 * rr;
+    if (r >= Lq) continue;
+    __nv_bfloat16* orow = ob + r * os.s;
+#pragma unroll
+    for (int reg = 0; reg < kChunkRegions; ++reg)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        if (64 * reg + 8 * nb >= c_cols) continue;
+        const int i = 4 * nb + 2 * rr;
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * reg + 8 * nb + col0) =
+            __floats2bfloat162_rn(o[reg][i] / denom, o[reg][i + 1] / denom);
+      }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -574,15 +923,15 @@ EncodeTiled encode_tiled() {
 }
 
 // A rank-4 map over (D, L, H, B) of a bf16 tensor with the given
-// (batch, head, position) strides in elements, in boxes of 64 x 128 rows;
-// a box reaching past D or L is filled with zeros there.
+// (batch, head, position) strides in elements, in boxes of 64 columns x
+// `rows` rows; a box reaching past D or L is filled with zeros there.
 CUresult make_map(CUtensorMap* map, EncodeTiled encode, const void* base,
-                  int D, int L, int H, int B, Strides st) {
+                  int D, int L, int H, int B, Strides st, int rows = kBlock) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
                                  (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, kBlock, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
@@ -621,6 +970,38 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+template <int kParts, int kSliceRegions>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                Strides qs, Strides ks, Strides vs, Strides os, int B, int Hq,
+                int Hkv, int Lq, int Lk, int D, int causal, float sm_scale,
+                int device, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tm_q, tm_k, tm_v;
+  CUresult res = make_map(&tm_q, encode, q, D, Lq, Hq, B, qs);
+  if (res == CUDA_SUCCESS)
+    res = make_map(&tm_k, encode, k, D, Lk, Hkv, B, ks, kWideBlockK);
+  if (res == CUDA_SUCCESS)
+    res = make_map(&tm_v, encode, v, D, Lk, Hkv, B, vs, kWideBlockK);
+  if (res != CUDA_SUCCESS) return 10000 + (int)res;
+  const auto kernel = flash_attention_wgmma_wide_kernel<kParts, kSliceRegions>;
+  // asked for once a card, at the most any head_dim takes
+  static bool configured[kMaxDevices] = {};
+  if (device >= kMaxDevices || !configured[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < kMaxDevices) configured[device] = true;
+  }
+  const long long blocks = (long long)((Lq + kBlock - 1) / kBlock) * B * Hq *
+                           ((D + kChunkColumns - 1) / kChunkColumns);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, WideLayout(D).smem_bytes(), stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), os, Hq, Hq / Hkv, Lq,
+      Lk, D, causal, (float)(sm_scale * 1.4426950408889634));   // log2(e)
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -629,11 +1010,11 @@ extern "C" {
 // the CUresult when a tensor map cannot be built.  q, k, v and out
 // are bfloat16 with a contiguous head_dim, 16-byte-aligned bases and
 // (batch, head, position) strides in elements that are multiples of 8;
-// D is a multiple of 16 from 16 to 128; p_parts, the bf16 parts P is split
-// into for the tensor cores, 3, or at D 64 and 128 also 1 or 2 (for
-// tools/flash_rounding.py); sm_scale > 0; B * Hq, Lq and Lk positive, and
-// B * Hq * ceil(Lq / 128) at most 2^31 - 1.  The kernel runs
-// asynchronously on `stream` of card `device`.
+// D is a positive multiple of 16 (the wide kernel past 128); p_parts, the
+// bf16 parts P is split into for the tensor cores, 3, or at D 64 and 128
+// also 1 or 2 (for tools/flash_rounding.py); sm_scale > 0; B * Hq, Lq and
+// Lk positive, and B * Hq * ceil(Lq / 128) * ceil(D / 128) at most
+// 2^31 - 1.  The kernel runs asynchronously on `stream` of card `device`.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                                  void* out, int B, int Hq, int Hkv, int Lq,
                                  int Lk, int D, int p_parts, int causal,
@@ -665,16 +1046,27 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
     case 80 * 4 + 3: FA_LAUNCH(80, 3);
     case 96 * 4 + 3: FA_LAUNCH(96, 3);
     case 112 * 4 + 3: FA_LAUNCH(112, 3);
-    default:
-      return (int)cudaErrorInvalidValue;
   }
 #undef FA_LAUNCH
+#define FA_LAUNCH_WIDE(slice)                                                \
+  return launch_wide<3, slice>(q, k, v, out, qs, ks, vs, os, B, Hq, Hkv, Lq, \
+                               Lk, D, causal, sm_scale, device, stream)
+  if (D > 128 && D % 16 == 0 && p_parts == 3) {
+    switch (wide_slice_regions(D)) {
+      case 2: FA_LAUNCH_WIDE(2);
+      case 3: FA_LAUNCH_WIDE(3);
+      case 4: FA_LAUNCH_WIDE(4);
+    }
+  }
+#undef FA_LAUNCH_WIDE
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of a block at head_dim D (a multiple of 16 from 16
-// to 128), in bytes; 0 for another D.
+// Dynamic shared memory of a block at head_dim D (a positive multiple of
+// 16), in bytes; 0 for another D.
 int flash_attention_wgmma_smem_bytes(int D) {
-  if (D % 16 != 0 || D < 16 || D > 128) return 0;
+  if (D % 16 != 0 || D < 16) return 0;
+  if (D > 128) return WideLayout(D).smem_bytes();
   return (int)(D <= 64 ? smem_bytes<64>() : smem_bytes<128>());
 }
 

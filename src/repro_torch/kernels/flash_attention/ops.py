@@ -8,28 +8,32 @@ The port's counterpart of ``src/repro/kernels/flash_attention/ops.py``.
   not to the plain version.
 
 Two kernels compute the same function, and :func:`route` names which one
-a call takes from its dtype and head_dim alone:
+a call takes from its dtype alone:
 
-* ``"tensor_core"``: bfloat16 at every head_dim up to 128 (every config
-  of the repo: 64 and 128 for the dense, GQA, vlm, audio and moe ones,
-  112 for zamba2-7b's shared attention), ``csrc/flash_attention_wgmma.cu``:
+* ``"tensor_core"``: bfloat16 at every head_dim (every config of the
+  repo: 64 and 128 for the dense, GQA, vlm, audio and moe ones, 112 for
+  zamba2-7b's shared attention), ``csrc/flash_attention_wgmma.cu``:
   ``wgmma`` on the tensor cores, TMA loads, instantiated at the head_dims
-  of :data:`TENSOR_CORE_HEAD_DIMS`.  It reads its inputs through TMA
-  tensor maps, so each base must be 16-byte aligned and each stride a
-  positive multiple of 16 bytes.  At head_dim 64 and 128 the wrapper
-  raises ``ValueError`` for anything else, on any device, as it has since
-  the route took only those two; at the others such an input goes in as
-  an aligned copy on a card (the CPU runs the plain version on it).
-* ``"tf32x3"``: float32 at every head_dim, and bfloat16 past 128,
+  of :data:`TENSOR_CORE_HEAD_DIMS` and, past them, a wide kernel that
+  takes the head_dim at run time.  It reads its inputs through TMA tensor
+  maps, so each base must be 16-byte aligned and each stride a positive
+  multiple of 16 bytes.  At head_dim 64 and 128 the wrapper raises
+  ``ValueError`` for anything else, on any device, as it has since the
+  route took only those two; at the others such an input goes in as an
+  aligned copy on a card (the CPU runs the plain version on it).
+* ``"tf32x3"``: float32 at every head_dim,
   ``csrc/flash_attention_tf32x3.cu``: ``mma.sync`` on the tensor cores in
   split TF32, each f32 operand split into a TF32 high and low part and
-  each product the sum of three TF32 products, which keeps f32 accuracy
-  (a bfloat16 operand is exact in TF32 and is not split).  It takes any
-  base and strides, copying 16 bytes at a time where they allow.  It is
-  instantiated at the head_dims of :data:`HEAD_DIMS`, one past
-  :data:`MAX_HEAD_DIM` raises ``ValueError`` on a card, and past head_dim
-  128 a block writes one of two equal chunks of the output's head_dim
-  (:func:`out_chunks`), after computing q.k over the whole of it.
+  each product the sum of three TF32 products, which keeps f32 accuracy.
+  It takes any base and strides, copying 16 bytes at a time where they
+  allow.  It is instantiated at the head_dims of :data:`HEAD_DIMS` and,
+  past them, a sliced kernel that takes the head_dim at run time.
+
+Past head_dim 128, on either route, a block writes one chunk of at most
+128 of the output's columns (:func:`out_chunks`), after computing q.k
+over the whole head_dim; past 256 the split-TF32 kernel, and past 128 the
+tensor-core one, read q.k's head_dim in slices, so that shared memory
+bounds no head_dim: only the grid can refuse a call (:func:`_check_grid`).
 
 On either route a head_dim that is not a multiple of 16 runs on copies of
 q, k and v zero-padded to the next one (:func:`kernel_head_dim`): zero
@@ -68,8 +72,7 @@ from .._launch import launch_args, on_cpu
 from . import ref
 
 __all__ = ["flash_attention", "counts", "load", "route", "kernel_head_dim",
-           "out_chunks", "HEAD_DIMS", "MAX_HEAD_DIM", "ROUTES",
-           "TENSOR_CORE_HEAD_DIMS"]
+           "out_chunks", "HEAD_DIMS", "ROUTES", "TENSOR_CORE_HEAD_DIMS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -92,13 +95,14 @@ _LIBRARIES = {
         "flash_attention_wgmma_smem_bytes": [_I]}),
 }
 ROUTES = tuple(_LIBRARIES)
-#: head_dims the split-TF32 kernel is instantiated for, in both dtypes:
-#: its QK^T reads 16 head_dim columns at a time
+#: head_dims the split-TF32 kernel is instantiated for (its QK^T reads 16
+#: head_dim columns at a time); past them its sliced kernel takes any
+#: multiple of 16 in float32
 HEAD_DIMS = tuple(range(16, 257, 16))
-MAX_HEAD_DIM = HEAD_DIMS[-1]
-_OUT_COLUMNS = 128        # most output columns a split-TF32 block holds
-#: head_dims the tensor-core kernel is instantiated for, in bfloat16: its
-#: QK^T reads 16 head_dim columns at a time, its P.V writes 64 or fewer
+_OUT_COLUMNS = 128        # most output columns a block of either route holds
+#: head_dims the tensor-core kernel is instantiated for, in bfloat16 (its
+#: QK^T reads 16 head_dim columns at a time, its P.V writes 64 or fewer);
+#: past them its wide kernel takes any multiple of 16
 TENSOR_CORE_HEAD_DIMS = tuple(range(16, 129, 16))
 #: head_dims at which the tensor-core route refuses a view TMA cannot
 #: read in place (the two it took before it took every one up to 128)
@@ -118,9 +122,9 @@ counts = {"flash_attention": 0, "tensor_core": 0, "tf32x3": 0}
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a call with these inputs launches on a card:
-    ``"tensor_core"`` for bfloat16 at head_dim 1 to 128, else
+    ``"tensor_core"`` for bfloat16 at every head_dim from 1, else
     ``"tf32x3"``."""
-    if dtype == torch.bfloat16 and 1 <= head_dim <= TENSOR_CORE_HEAD_DIMS[-1]:
+    if dtype == torch.bfloat16 and head_dim >= 1:
         return "tensor_core"
     return "tf32x3"
 
@@ -177,27 +181,27 @@ def _tma_fault(name: str, t: torch.Tensor) -> Optional[str]:
 
 def kernel_head_dim(d: int) -> int:
     """The head_dim of the kernel a call of head_dim ``d`` launches: ``d``
-    rounded up to a multiple of 16.  Raises ``ValueError`` outside 1 to
-    :data:`MAX_HEAD_DIM`."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} is outside the kernels' 1 to "
-                         f"{MAX_HEAD_DIM}")
+    rounded up to a multiple of 16.  Raises ``ValueError`` below 1."""
+    if d < 1:
+        raise ValueError(f"head_dim {d} is below 1")
     return -(-d // 16) * 16
 
 
 def out_chunks(d: int) -> int:
-    """The chunks the split-TF32 kernel splits the output's head_dim into
-    at kernel head_dim ``d``, one a block: 1 up to 128, 2 past it."""
+    """The chunks either kernel splits the output's head_dim into at
+    kernel head_dim ``d``, one a block: 1 up to 128, 2 up to 256, and
+    ``ceil(d / 128)`` past it.  Up to 256 the split-TF32 kernel's two
+    chunks are equal halves; past 256 on that route, and past 128 on the
+    tensor-core one, every chunk holds 128 columns but the last, which
+    holds the rest (a multiple of 16)."""
     return -(-d // _OUT_COLUMNS)
 
 
 def _check_grid(which: str, b: int, hq: int, lq: int, d: int) -> None:
     """Raise ``ValueError`` where route ``which``'s grid cannot hold the
     call at kernel head_dim ``d``: each route's grid is 1-D over
-    (B * Hq) x q tiles of ``_BLOCK_Q[which]`` rows, on the split-TF32
-    route times ``out_chunks(d)``."""
-    chunks = out_chunks(d) if which == "tf32x3" else 1
-    if b * hq * -(-lq // _BLOCK_Q[which]) * chunks > _INT_MAX:
+    (B * Hq) x q tiles of ``_BLOCK_Q[which]`` rows x ``out_chunks(d)``."""
+    if b * hq * -(-lq // _BLOCK_Q[which]) * out_chunks(d) > _INT_MAX:
         raise ValueError(f"q ({b}, {hq}, {lq}, D) exceeds the {which} "
                          f"kernel's grid")
 
@@ -217,9 +221,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Forward GQA attention with f32 scores and accumulation and an
     end-aligned causal mask (row r sees columns <= r + Lk - Lq); a row that
     sees no column gives 0.  ``sm_scale`` defaults to ``D ** -0.5``.
-    float32 or bfloat16; any head_dim on the CPU, 1 to
-    :data:`MAX_HEAD_DIM` on a card.  Raises ``NotImplementedError`` where
-    autograd would record the call: the kernels have no backward."""
+    float32 or bfloat16; any head_dim, on the CPU and on a card.  Raises
+    ``NotImplementedError`` where autograd would record the call: the
+    kernels have no backward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "the flash kernels have no backward, as in the JAX package: "

@@ -216,9 +216,10 @@ def test_flash_kernel_reads_strided_views(card, no_tf32, dtype, s, d):
                                   "bf16_offset_1"])
 def test_tf32x3_kernel_takes_unaligned_views(card, no_tf32, case):
     """The split-TF32 kernel copies 4 bytes at a time where a base or a
-    stride rules out 16: an offset view, rows 65 floats apart, a bf16
-    view one element in (at head_dim 144: bf16 up to 128 takes the
-    tensor-core route)."""
+    stride rules out 16: an offset view, rows 65 floats apart; a bf16
+    view one element in at head_dim 144 goes to the tensor-core kernel's
+    wide kernel as an aligned copy (bf16 took split TF32 past 128 before
+    that kernel)."""
     rng = np.random.default_rng(13)
     dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
     d = 144 if dtype == torch.bfloat16 else 64
@@ -232,10 +233,12 @@ def test_tf32x3_kernel_takes_unaligned_views(card, no_tf32, case):
     q.copy_(data.to("cuda", dtype))
     k, v = (torch.from_numpy(rng.standard_normal((1, 2, 100, d)).astype(
         np.float32)).to("cuda", dtype) for _ in range(2))
-    before = fa_ops.counts["tf32x3"]
+    which = "tensor_core" if dtype == torch.bfloat16 else "tf32x3"
+    assert fa_ops.route(dtype, d) == which
+    before = fa_ops.counts[which]
     got = fa_ops.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa_ops.counts["tf32x3"] == before + 1
+    assert fa_ops.counts[which] == before + 1
     want = fa_ref.flash_attention(q.contiguous(), k, v)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -355,11 +358,14 @@ def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
 
 
 #: head_dims beyond 16/32/64/128: the kernels' instantiations at 48, 80,
-#: 96, 112 (zamba2-7b's) and, past 128 (split TF32 only), at 144, 176,
-#: 224, 240 and 256 (two output chunks a q tile), and head_dims they reach
-#: by zero padding (1, 40, 57, 72, 100, 113, 127, 200)
+#: 96, 112 (zamba2-7b's) and, past 128, at 144, 176, 224, 240 and 256
+#: (two output chunks a q tile; on the tensor cores the wide kernel), past
+#: 256 at 272, 384, 512, 576 and 1,024 (the split-TF32 sliced kernel, the
+#: wide one, which reads q again with each slice of K past 512), and
+#: head_dims they reach by zero padding (1, 40, 57, 72, 100, 113, 127,
+#: 200, 257)
 ANY_D = [1, 40, 48, 57, 72, 80, 96, 100, 112, 113, 127, 144, 176, 200,
-         224, 240, 256]
+         224, 240, 256, 257, 272, 384, 512, 576, 1024]
 
 
 def any_head_dim_case(d: int, causal: bool, dtype, which: str) -> None:
@@ -380,22 +386,37 @@ def any_head_dim_case(d: int, causal: bool, dtype, which: str) -> None:
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, d) for d in ANY_D]
-                         + [(torch.bfloat16, d) for d in ANY_D if d > 128],
-                         ids=lambda x: {torch.float32: "f32",
-                                        torch.bfloat16: "bf16"}.get(x, x))
+@pytest.mark.parametrize("d", ANY_D)
 @pytest.mark.parametrize("causal", [True, False])
-def test_tf32x3_kernel_takes_any_head_dim(card, no_tf32, d, causal, dtype):
-    """f32 at every head_dim, bf16 past 128: the split-TF32 kernel."""
-    any_head_dim_case(d, causal, dtype, "tf32x3")
+def test_tf32x3_kernel_takes_any_head_dim(card, no_tf32, d, causal):
+    """f32 at every head_dim: the split-TF32 kernel (sliced past 256)."""
+    any_head_dim_case(d, causal, torch.float32, "tf32x3")
 
 
-@pytest.mark.parametrize("d", [d for d in ANY_D if d <= 128])
+@pytest.mark.parametrize("d", ANY_D)
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_kernel_takes_any_head_dim(card, d, causal):
-    """bf16 up to head_dim 128: the tensor-core kernel, at its own
-    instantiation (48, 80, 96, 112) or on zero-padded copies."""
+    """bf16 at every head_dim: the tensor-core kernel, at its own
+    instantiation (48, 80, 96, 112), its wide kernel past 128, or on
+    zero-padded copies."""
     any_head_dim_case(d, causal, torch.bfloat16, "tensor_core")
+
+
+def test_bf16_past_128_launches_only_the_tensor_core_kernel(card):
+    """bf16 at head_dims 144 to 256 (and 272) launches the tensor-core
+    kernel, once a call, and never the split-TF32 one."""
+    rng = np.random.default_rng(144)
+    before = dict(fa_ops.counts)
+    ds = (144, 160, 192, 200, 240, 256, 272)
+    for d in ds:
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 70, d))
+                                    .astype(np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        assert fa_ops.route(q.dtype, d) == "tensor_core"
+        fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.counts["tensor_core"] == before["tensor_core"] + len(ds)
+    assert fa_ops.counts["tf32x3"] == before["tf32x3"]
 
 
 def test_tensor_core_kernel_reads_a_misaligned_view_through_a_copy(card):
@@ -440,12 +461,31 @@ def test_smallest_head_dim_129_input_on_the_card(card, no_tf32):
     assert fa_ops.counts["tf32x3"] == before + 1
 
 
-def test_head_dim_past_the_kernels_raises_on_the_card(card):
-    q = torch.zeros((1, 2, 8, fa_ops.MAX_HEAD_DIM + 1), device="cuda")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [257, 512])
+def test_head_dim_past_256_runs_on_the_card(card, no_tf32, d, dtype):
+    """Past head_dim 256, which the card refused until the kernels took
+    every head_dim: (1, 1, 1, 257) q, k and v (the smallest such input)
+    and a ragged (2, 4, 90) over (2, 2, 130) call run the route's kernel
+    (split TF32 in f32, the tensor cores in bf16) and agree with the plain
+    version."""
+    which = fa_ops.route(dtype, d)
+    assert which == ("tf32x3" if dtype == torch.float32 else "tensor_core")
+    rng = np.random.default_rng(d)
     before = dict(fa_ops.counts)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa_ops.flash_attention(q, q, q)
-    assert fa_ops.counts == before
+    for qs, kvs in (((1, 1, 1, d), (1, 1, 1, d)),
+                    ((2, 4, 90, d), (2, 2, 130, d))):
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to("cuda", dtype) for s in (qs, kvs, kvs))
+        got = fa_ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(),
+                                   fa_ref.flash_attention(q, k, v).float(),
+                                   rtol=tol, atol=tol)
+    assert fa_ops.counts[which] == before[which] + 2
+    assert fa_ops.counts["flash_attention"] == before["flash_attention"] + 2
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b",

@@ -133,8 +133,10 @@ def test_empty_kv_gives_zeros():
 
 #: head_dims the JAX kernel computes and the split-TF32 kernel reaches by
 #: zero padding (40, 72, 200) or by its own instantiation (80, 96, 112:
-#: zamba2-7b's; 144 and 256, past 128, in two output chunks)
-ANY_D = [40, 72, 80, 96, 112, 144, 200, 256]
+#: zamba2-7b's; 144 and 256, past 128, in two output chunks), and past
+#: 256 by its sliced kernel (272: three chunks, the last of 16 columns;
+#: 384 and 512: three and four chunks of 128)
+ANY_D = [40, 72, 80, 96, 112, 144, 200, 256, 272, 384, 512]
 
 
 @pytest.mark.parametrize("d", ANY_D)
@@ -148,6 +150,14 @@ def test_any_head_dim_matches_jax_kernel(d, causal):
                                rtol=1e-5, atol=1e-5)
 
 
+def test_any_head_dim_1024_matches_jax_kernel():
+    """head_dim 1,024 (eight chunks and slices on either route), GQA 2/1
+    over a ragged 40 positions, in f32 within 1e-5."""
+    q, k, v = qkv(np.random.default_rng(1024), 1, 2, 1, 40, 40, 1024)
+    np.testing.assert_allclose(port(q, k, v), jax_kernel(q, k, v),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_head_dim_112_matches_jax_kernel(causal):
     """zamba2-7b's shared attention in bf16 at head_dim 112 (the
@@ -155,6 +165,20 @@ def test_bf16_head_dim_112_matches_jax_kernel(causal):
     against the JAX kernel in bf16: within 2e-2, one bf16 rounding of the
     output, as the card tests hold it."""
     q, k, v = qkv(np.random.default_rng(1120), 1, 4, 2, 130, 130, 112)
+    np.testing.assert_allclose(
+        port(q, k, v, dtype=torch.bfloat16, causal=causal),
+        jax_kernel(q, k, v, dtype=jnp.bfloat16, causal=causal),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [256, 272])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_head_dim_past_128_matches_jax_kernel(d, causal):
+    """bf16 past head_dim 128 (the tensor-core route's wide kernel on a
+    card: two chunks at 256, three at 272, the last of 16 columns), GQA
+    4/2 over a ragged 130 positions, against the JAX kernel in bf16 within
+    2e-2."""
+    q, k, v = qkv(np.random.default_rng(d + 1), 1, 4, 2, 130, 130, d)
     np.testing.assert_allclose(
         port(q, k, v, dtype=torch.bfloat16, causal=causal),
         jax_kernel(q, k, v, dtype=jnp.bfloat16, causal=causal),
@@ -181,28 +205,38 @@ def test_smallest_head_dim_129_input_matches_jax_kernel():
                                     (112, 112), (113, 128), (128, 128),
                                     (129, 144), (144, 144), (160, 160),
                                     (192, 192), (200, 208), (255, 256),
-                                    (256, 256)])
+                                    (256, 256), (257, 272), (512, 512)])
 def test_kernel_head_dim(d, want):
-    """A card call runs the instantiation at ``d`` rounded up to 16."""
+    """A card call runs the kernel at ``d`` rounded up to 16: the
+    split-TF32 kernel's instantiation there up to 256, its sliced kernel
+    past it (the tensor-core kernel's wide one past 128)."""
     assert ops.kernel_head_dim(d) == want
-    assert want in ops.HEAD_DIMS
+    assert want in ops.HEAD_DIMS or (want > ops.HEAD_DIMS[-1]
+                                     and want % 16 == 0)
 
 
-@pytest.mark.parametrize("d", [0, 257, 512])
+@pytest.mark.parametrize("d", [0, -1])
 def test_kernel_head_dim_outside_the_kernels_raises(d):
     with pytest.raises(ValueError, match="head_dim"):
         ops.kernel_head_dim(d)
 
 
 @pytest.mark.parametrize("d,chunks", [(16, 1), (128, 1), (144, 2),
-                                      (208, 2), (256, 2)])
+                                      (208, 2), (256, 2), (272, 3),
+                                      (384, 3), (400, 4), (512, 4),
+                                      (1024, 8)])
 def test_out_chunks(d, chunks):
-    """Past head_dim 128 a split-TF32 block holds one of two equal chunks
-    of the output's columns, each at most 128 and a multiple of 8 (an mma
-    n-tile)."""
+    """Past head_dim 128 a block holds one chunk of the output's columns,
+    each at most 128 and a multiple of 16: up to 256 the split-TF32
+    kernel's two are equal halves; the tensor-core kernel's, and the
+    split-TF32 kernel's past 256, are 128 columns each but the last,
+    which holds the rest (16 at 144 and 272)."""
     assert ops.out_chunks(d) == chunks
-    width = d // chunks
-    assert width * chunks == d and width <= 128 and width % 8 == 0
+    if d <= 256:
+        width = d // chunks
+        assert width * chunks == d and width <= 128 and width % 8 == 0
+    last = d - 128 * (chunks - 1)
+    assert 0 < last <= 128 and last % 16 == 0
 
 
 @pytest.mark.parametrize("d", [40, 72, 112, 200])
@@ -224,17 +258,19 @@ def test_zero_padding_to_the_kernel_head_dim_changes_nothing(d, causal):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("head_dim", [1, 16, 32, 40, 48, 64, 80, 96, 112,
-                                      128, 144, 256])
+                                      128, 144, 256, 257, 272, 384, 512,
+                                      1024])
 def test_route(dtype, head_dim):
-    """bf16 at every head_dim up to 128 takes the wgmma kernel, at the
-    instantiation of ``kernel_head_dim``; f32, and bf16 past 128, the
+    """bf16 at every head_dim takes the wgmma kernel, at the instantiation
+    of ``kernel_head_dim`` up to 128 and its wide kernel past it; f32 the
     split-TF32 kernel, which keeps f32 accuracy on the tensor cores."""
-    want = ("tensor_core" if dtype == "bfloat16"
-            and ops.kernel_head_dim(head_dim) <= 128 else "tf32x3")
+    want = "tensor_core" if dtype == "bfloat16" else "tf32x3"
     assert ops.route(getattr(torch, dtype), head_dim) == want
     assert want in ops.ROUTES
+    dk = ops.kernel_head_dim(head_dim)
     if want == "tensor_core":
-        assert ops.kernel_head_dim(head_dim) in ops.TENSOR_CORE_HEAD_DIMS
+        assert dk in ops.TENSOR_CORE_HEAD_DIMS or (
+            dk > ops.TENSOR_CORE_HEAD_DIMS[-1] and dk % 16 == 0)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -305,8 +341,8 @@ def test_tensor_core_route_rejects_unaligned_inputs(case):
 def test_cuda_core_route_takes_unaligned_inputs(dtype, d):
     """Views the wgmma route refuses at head_dim 64 and 128 go in at the
     others: an offset view gives what a contiguous copy gives (on a card
-    the split-TF32 kernel, f32 and bf16 past 128, copies 4 bytes at a
-    time there, not 16; the tensor-core kernel reads an aligned copy)."""
+    the split-TF32 kernel, f32, copies 4 bytes at a time there, not 16;
+    the tensor-core kernel, bf16 at 32 and 144, reads an aligned copy)."""
     dtype = getattr(torch, dtype)
     q = _offset_view((1, 4, 8, d), dtype)
     q.copy_(torch.from_numpy(np.random.default_rng(8).standard_normal(
@@ -390,17 +426,19 @@ def test_grid_limits(which, b, hq, lq, fits):
 
 
 @pytest.mark.parametrize("d,fits", [(128, True), (144, False),
-                                    (256, False)])
+                                    (256, False), (512, False)])
 def test_grid_limits_count_the_output_chunks(d, fits):
-    """Past head_dim 128 the split-TF32 grid holds two blocks a q tile:
-    2^30 q tiles fit one a tile, not two."""
-    args = ("tf32x3", 2 ** 16, 2 ** 8, 64 * 2 ** 6, d)
-    if fits:
-        ops._check_grid(*args)
-    else:
-        with pytest.raises(ValueError, match="grid"):
+    """Past head_dim 128 either route's grid holds two or more blocks a q
+    tile (``out_chunks``): 2^30 q tiles fit one a tile, not two; 2^28
+    fit four, at head_dim 512."""
+    for which in ops.ROUTES:
+        args = (which, 2 ** 16, 2 ** 8, ops._BLOCK_Q[which] * 2 ** 6, d)
+        if fits:
             ops._check_grid(*args)
-    ops._check_grid("tensor_core", 2 ** 16, 2 ** 8, 128 * 2 ** 6, d)
+        else:
+            with pytest.raises(ValueError, match="grid"):
+                ops._check_grid(*args)
+    ops._check_grid("tensor_core", 2 ** 16, 2 ** 6, 128 * 2 ** 6, 512)
 
 
 def tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
