@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero and none is caught:
    of ``HGMMA`` (warpgroup tensor-core) instructions in the bf16 flash
    kernel's SASS (all of it, its instantiations at head_dim 112 and 128,
    and its wide kernel) and of ``HMMA`` (``mma.sync``) instructions in the
-   split-TF32 one, by ``cuobjdump -sass``, each of which must be above 0.
+   split-TF32 one, by ``cuobjdump -sass``, each of which must be above 0;
+   each flash library's blocks a q tile at every head_dim 16-1,024 equal
+   to ``ops.out_chunks``; each instantiation of the wide tensor-core
+   kernel holds as many ``HGMMA`` as the ``wgmma`` it counts a tile.
 2. Kernel parity: both support-join kernels against their plain PyTorch
    versions on edge-case grids, requiring exact equality (the s-step
    kernel also on slots nonzero in 0.4%, 1% and 12.6% of the sessions,
@@ -31,12 +34,15 @@ Phases, in order; any failure exits non-zero and none is caught:
    tensor-core kernel's edges (ragged 1,000, Lq > Lk, Lq < Lk = 513, GQA
    56/8, MQA), its head_dims 16, 32, 48, 80, 96 and 112 (zamba2-7b's),
    zero-padded 40, 72 and 100, and past 128 (its wide kernel) 144, 160,
-   192, 200 (zero-padded), 240, 256, 272, 384, 512, 576 and 1,024, each
-   ragged with Lq < Lk under GQA and over three tiles under MQA; both
-   kernels at 40, 48, 72, 80, 96 and 112 and, past 128, 144, 160, 176,
-   192, 200, 224, 240 and 256 (200 zero-padded); and the split-TF32 kernel
-   in f32 past 256 (its sliced kernel) at 272, 384, 512 and 1,024; f32
-   within 2e-5 with TF32 off and bf16 within 2e-2.
+   192, 200 (zero-padded), 208, 240, 256, 272, 384, 400, 512, 528, 576
+   and 1,024, each ragged with Lq < Lk under GQA and over three tiles
+   under MQA; both kernels at 40, 48, 72, 80, 96 and 112 and, past 128,
+   144, 160, 176, 192, 200, 224, 240 and 256 (200 zero-padded; split TF32
+   by its own instantiations, one block a q tile); and the split-TF32
+   kernel in f32 past 256 (its wide kernel) at 272, 384, 400, 512, 528,
+   576 and 1,024; f32 within 2e-5 with TF32 off and bf16 within 2e-2.
+   Past 128, in both dtypes, two launches on the same inputs must give
+   the same bits.
 3. Main path: the paper's SEQB two-stage run at its session scale
    (10,000 logged sessions, then 2,000 served) through
    ``PalpatineClient(device="cuda")``.  Mining must launch the frontier
@@ -72,13 +78,16 @@ Phases, in order; any failure exits non-zero and none is caught:
    product at 495 TFLOP/s, with the f32 FMA bound beside it), and the
    split-TF32 kernel in f32 at head_dims 112 and 256; in bf16, the share
    of outputs the tensor-core kernel rounds unlike the plain version, and
-   its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``);
+   its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``),
+   and the wide kernel's share held below 1.25x the three parts' share
+   past head_dim 256 (tile sums) and below the two parts' share up to it
+   (P.V chained into O);
    the tensor-core kernel in bf16 at zamba2-7b's attention shape (head_dim
-   112, phase 15's route) and past 128 at 256 and 512 (its wide kernel),
-   and at 256 beside it the split-TF32 library on the same bf16 input,
-   called directly (bf16's route past 128 until the wide kernel; a
-   yardstick never on the path), bound by the TF32 products it issues; the
-   split-TF32 kernel in f32 at head_dim 512 (its sliced kernel).
+   112, phase 15's route) and past 128 at 256 and 512 (its wide kernel);
+   the split-TF32 kernel in f32 at head_dim 512 (its wide kernel).  Past
+   head_dim 128 each timing prints the products the kernel counted in one
+   call (``ops.counted_products``), q.k and P.V apart, and how many times
+   q.k was issued a (q tile, kv tile) pair.
 9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
    with the numpy engine over the SEQB client's index and the stage-2
    requests, for each heuristic (equal waves at every op); the per-op
@@ -258,13 +267,17 @@ PEAK_BF16_FLOP_PER_S = 989e12
 #: TF32 products for each f32 one
 PEAK_TF32_FLOP_PER_S = 495e12
 TF32_SPLIT_PRODUCTS = 3
-#: on bf16 inputs the split-TF32 kernel issues one TF32 product for QK^T
-#: (bf16 is exact in TF32) and two for P.V (f32 p splits, v does not):
-#: 1.5 TF32 products a FLOP on average, QK^T and P.V being half each
-TF32_BF16_PRODUCTS = 1.5
+#: kv rows a tile of each route's kernels past head_dim 128 (kWideRows in
+#: flash_attention_wgmma.cu; Tile's kBlockK and kWideBlockK in
+#: flash_attention_tf32x3.cu)
+FLASH_WIDE_KV_ROWS = {"tensor_core": 64, "tf32x3": 32}
+#: the tensor cores' wide kernel's instantiations: (owners, 64-column
+#: regions an owner, q.k in rounds)
+WIDE_INSTANTIATIONS = ((1, 3, 0), (1, 4, 0), (3, 2, 0), (4, 2, 0), (3, 2, 1))
 #: head_dims past 128 at which phase 1 prints the tensor-core wide
 #: kernel's shared memory a block
-WIDE_HEAD_DIMS = (144, 160, 192, 208, 240, 256, 272, 384, 512, 576, 1024)
+WIDE_HEAD_DIMS = (144, 160, 192, 208, 240, 256, 272, 384, 400, 512, 528,
+                  576, 1024)
 
 
 # ---------------------------------------------------------------------------
@@ -860,9 +873,10 @@ FLASH_TC_EDGES = [(1, 4, 2, 1000, 1000, 128), (1, 4, 2, 300, 100, 128),
 #: head_dims past the first four, in both dtypes (bf16 takes the
 #: tensor-core kernel, f32 the split-TF32 one): 48, 80, 96 and 112
 #: (zamba2-7b's) by their own instantiations, 40 and 72 zero-padded to 48
-#: and 80; past 128, in two output chunks a q tile, 144, 160, 176, 192,
-#: 224, 240 and 256 by their own and 200 zero-padded to 208; ragged 130,
-#: Lq < Lk, and GQA 8/2 at 112 and 256
+#: and 80; past 128, one block a q tile holding every output column (the
+#: tensor cores' wide kernel with one warpgroup, split TF32's own
+#: instantiations), 144, 160, 176, 192, 224, 240 and 256, and 200
+#: zero-padded to 208; ragged 130, Lq < Lk, and GQA 8/2 at 112 and 256
 FLASH_ANY_D = [(1, 2, 2, 130, 130, d)
                for d in (40, 48, 72, 80, 96, 112, 144, 160, 176, 192, 200,
                          224, 240, 256)] \
@@ -870,19 +884,28 @@ FLASH_ANY_D = [(1, 2, 2, 130, 130, d)
        (1, 2, 2, 70, 200, 256), (2, 8, 2, 100, 100, 256)]
 #: bf16 only, the tensor-core kernel at every head_dim but 64 and 128:
 #: its instantiations at 16, 32, 48, 80, 96 and 112 and zero-padded 40, 72
-#: and 100; past 128 its wide kernel at 144, 160, 192, 240, 256, 272, 384
-#: and 512 (q in shared memory), 576 and 1,024 (q read with each slice of
-#: K) and zero-padded 200; each ragged with Lq < Lk under GQA 4/2 and over
-#: three q tiles (five kv tiles past 128) under MQA 8/1
+#: and 100; past 128 its wide kernel, one block a q tile holding every
+#: output column, at 144, 160, 192, 208, 240 and 256 (one warpgroup of 3
+#: or 4 regions) and 272, 384, 400 and 512 (owners of 128 columns, 272 and
+#: 400 with a last owner of 16 or 80), past 512 in chunks of at most 384
+#: columns at 528, 576 and 1,024 (q.k in rounds, q read with K), and
+#: zero-padded 200; each ragged with Lq < Lk under GQA 4/2 and over three
+#: q tiles (five kv tiles past 128) under MQA 8/1
 FLASH_TC_ANY_D = [shape for d in (16, 32, 40, 48, 72, 80, 96, 100, 112, 144,
-                                  160, 192, 200, 240, 256, 272, 384, 512,
-                                  576, 1024)
+                                  160, 192, 200, 208, 240, 256, 272, 384,
+                                  400, 512, 528, 576, 1024)
                   for shape in ((1, 4, 2, 70, 200, d), (2, 8, 1, 300, 300, d))]
-#: f32 only, the split-TF32 kernel's sliced kernel past head_dim 256: 272
-#: (a last chunk and slice of 16 columns), 384, 512 and 1,024, ragged 130,
-#: and at 512 with Lq < Lk under GQA 8/2
-FLASH_F32_PAST_256 = [(1, 2, 2, 130, 130, d) for d in (272, 384, 512, 1024)] \
-    + [(2, 8, 2, 70, 200, 512)]
+#: f32 only, the split-TF32 kernel's wide kernel past head_dim 256 (32 q
+#: rows a block): 272 and 400 (a last owner of 16 and 80 columns), 384,
+#: 512, and past 512 in chunks at 528, 576 and 1,024, ragged 130; and at
+#: 400 and 512 with Lq < Lk under GQA 8/2
+FLASH_F32_PAST_256 = [(1, 2, 2, 130, 130, d)
+                      for d in (272, 384, 400, 512, 528, 576, 1024)] \
+    + [(2, 8, 2, 70, 200, 400), (2, 8, 2, 70, 200, 512)]
+#: past head_dim 128, in both dtypes: two launches on the same inputs give
+#: the same bits (the owners of a q tile add their partial scores in a
+#: fixed order)
+FLASH_BITWISE = [(2, 4, 2, 150, 333, d) for d in (144, 256, 400, 512, 528)]
 #: f32 with TF32 off: both sides are true f32 and differ in summation
 #: order only; bf16: one rounding of the output
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -896,6 +919,7 @@ class FlashParity:
     def __init__(self, torch, ops, ref):
         self.torch, self.ops, self.ref = torch, ops, ref
         self.cases = {r: 0 for r in ops.ROUTES}
+        self.bitwise = {r: 0 for r in ops.ROUTES}
         self.max_err = {(r, t): 0.0 for r in ops.ROUTES
                         for t in ("float32", "bfloat16")}
 
@@ -925,6 +949,18 @@ class FlashParity:
                                  f"(max abs err {err}, tol {tol})")
         self.cases[which] += 1
 
+    def same_bits(self, q, k, v, causal: bool) -> None:
+        """Two launches on the same inputs give the same bits."""
+        which = self.ops.route(q.dtype, q.shape[-1])
+        first = self.ops.flash_attention(q, k, v, causal=causal)
+        second = self.ops.flash_attention(q, k, v, causal=causal)
+        self.torch.cuda.synchronize()
+        if not self.torch.equal(first, second):
+            raise AssertionError(
+                f"flash_attention ({which}) {q.dtype} causal={causal} q "
+                f"{tuple(q.shape)}: two launches differ")
+        self.bitwise[which] += 1
+
     def max_abs_err(self, which: str) -> float:
         return max(e for (r, _), e in self.max_err.items() if r == which)
 
@@ -932,6 +968,7 @@ class FlashParity:
         return "; ".join(
             f"{r}: {self.cases[r]} cases, max abs err " + ", ".join(
                 f"{t} {self.max_err[r, t]:.3e}" for t in ("float32", "bfloat16"))
+            + f", {self.bitwise[r]} bitwise-repeat cases"
             for r in self.cases)
 
 
@@ -961,6 +998,11 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
         q, k, v = random_qkv(torch, rng, *shape, torch.float32)
         for causal in (True, False):
             parity.check(q, k, v, causal)
+    for shape in FLASH_BITWISE:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = random_qkv(torch, rng, *shape, dtype)
+            for causal in (True, False):
+                parity.same_bits(q, k, v, causal)
     # the model's layout: (B, S, H, D) activations viewed as (B, H, S, D),
     # on each route (the tensor-core kernel reads them through TMA maps),
     # and at zamba2-7b's head_dim
@@ -973,28 +1015,6 @@ def flash_edge_parity(torch, parity: FlashParity) -> None:
             np.float32)).to(DEVICE, dtype)
         parity.check(x.transpose(1, 2), kv.transpose(1, 2),
                      kv.transpose(1, 2), True)
-
-
-def split_tf32_on_bf16(torch, fa_ops, q, k, v):
-    """Causal attention of bf16 q, k, v (B, H, L, D at a head_dim the
-    split-TF32 library is instantiated for in bf16: a multiple of 16 up to
-    256) by that library, called through ``ops.load("tf32x3")`` directly:
-    bf16 takes the tensor cores, so this is a yardstick never on the path,
-    and it adds to no count."""
-    from repro_torch.kernels._launch import launch_args
-
-    b, hq, lq, d = q.shape
-    out = torch.empty((b, lq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    dev, stream = launch_args(q)
-    err = fa_ops.load("tf32x3").flash_attention_tf32x3_launch(
-        *(t.data_ptr() for t in (q, k, v, out)), 1, b, hq, k.shape[1], lq,
-        k.shape[2], d, 1, d ** -0.5,
-        *(s for t in (q, k, v, out) for s in fa_ops._strides(t)), dev, stream)
-    if err:
-        raise RuntimeError(f"the split-TF32 library on bf16 failed: CUDA "
-                           f"error {err}")
-    return out
 
 
 def sass_listing(lib_path: str) -> str:
@@ -1308,11 +1328,9 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     (B, H, S, D)): the tensor-core route in bf16, the split-TF32 route in
     f32 (TF32 off for the plain version and SDPA); the tensor-core kernel
     also with p in fewer bf16 parts (``ops.P_PARTS``), at zamba2-7b's
-    head_dim 112 and past 128 at 256 and 512 (its wide kernel), and at 256
-    beside the split-TF32 library on the same bf16 input (the route bf16
-    took past 128 before; a yardstick, never on the path); the split-TF32
-    kernel also at head_dims 112, 256 and 512 in f32.  Returns each timing
-    by route, or by a key that names the head_dim."""
+    head_dim 112 and past 128 at 256 and 512 (its wide kernel); the
+    split-TF32 kernel also at head_dims 112, 256 and 512 in f32.  Returns
+    each timing by route, or by a key that names the head_dim."""
     from unittest import mock
 
     import torch.nn.functional as F
@@ -1323,11 +1341,11 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
     # q, k, v read once and out written once
     timing = {}
     # the prefill shape on each route, then in f32 at zamba2-7b's head_dim
-    # 112, at 256, the split-TF32 kernel's widest instantiation (two
-    # output chunks a q tile, each recomputing q.k over all 256 columns;
-    # the bound counts the function's work, once), and at 512 (its sliced
-    # kernel); in bf16 at head_dim 112, zamba2-7b's serve path (phase 15),
-    # on the tensor cores, and at 256 and 512 on their wide kernel
+    # 112, at 256 (split TF32's widest instantiation) and at 512 (its wide
+    # kernel); in bf16 at
+    # head_dim 112, zamba2-7b's serve path (phase 15), on the tensor cores,
+    # and at 256 and 512 on their wide kernel; the bound counts the
+    # function's work, once
     for dtype, peak, products, d, key in (
             (torch.bfloat16, PEAK_BF16_FLOP_PER_S, 1, d, None),
             (torch.float32, PEAK_TF32_FLOP_PER_S, TF32_SPLIT_PRODUCTS, d,
@@ -1360,6 +1378,23 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
                           .float().mean())
                     if dtype == torch.bfloat16 else None)
         del plain
+        if rounding is not None and d > 128:
+            # the wide kernel's rounding against the D 128 kernel's in this
+            # run (the prefill shape comes first): past 256 a tile's P.V is
+            # summed from zero, as at D 128, within 1.25x of its share with
+            # three parts; up to 256 it is chained into O (a warpgroup's
+            # registers hold no tile sum), below its share with p in two
+            # parts, which failed the bf16 logits gates (PERF.md, Findings)
+            shares = timing["tensor_core"]["p_parts_rounding_share"]
+            limit = 1.25 * shares[3] if d > 256 else shares[2]
+            print(f"flash_attention ({which}) at D {d}: {rounding:.5f} of "
+                  f"its bf16 outputs round unlike the plain version's, "
+                  f"limit {limit:.5f} [{card}]")
+            if rounding > limit:
+                raise AssertionError(f"the wide tensor-core kernel at D {d} "
+                                     f"rounds {rounding:.5f} of its outputs "
+                                     f"unlike the plain version, above "
+                                     f"{limit:.5f}")
         qkv = (q, k, v)
         out = {
             "ms": time_ms(torch, lambda a=qkv: fa_ops.flash_attention(*a)),
@@ -1393,34 +1428,39 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
         if dtype == torch.float32 and key is None:
             # the CUDA-core design's bound: f32 FMAs at 67 TFLOP/s
             out["ffma_bound_ms"] = bound_ms(n_bytes, flop)[0]
-        if key == "tensor_core_d256":
-            # the split-TF32 library on the same bf16 input, called directly
-            # (bf16's route past 128 until the wide kernel): held against
-            # the plain version, timed in the same run, bound by the TF32
-            # products it issues
-            want = fa_ref.flash_attention(q, k, v)
-            got = split_tf32_on_bf16(torch, fa_ops, q, k, v)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            tol = FLASH_TOL["bfloat16"]
-            if bool(((got.float() - want.float()).abs()
-                     > tol + tol * want.float().abs()).any()):
-                raise AssertionError(f"the split-TF32 library on bf16 at D "
-                                     f"{d} differs from the plain version "
-                                     f"(max abs err {err})")
-            del got, want
-            out["tf32x3_ms"] = time_ms(
-                torch, lambda a=qkv: split_tf32_on_bf16(torch, fa_ops, *a))
-            out["tf32x3_issued_bound_ms"] = bound_ms(
-                n_bytes, TF32_BF16_PRODUCTS * flop, PEAK_TF32_FLOP_PER_S)[0]
-            print(f"split-TF32 library on the same bf16 input (a yardstick, "
-                  f"never on the path): {out['tf32x3_ms']:.4f} ms, max abs "
-                  f"err {err:.3e} from the plain version; bound by the TF32 "
-                  f"products it issues ({TF32_BF16_PRODUCTS} a FLOP) "
-                  f"{out['tf32x3_issued_bound_ms']:.4f} ms [{card}]")
+        # past head_dim 128: the products the kernel issued in one call, as
+        # it counts them (split TF32's warps where they issue each one, the
+        # tensor cores' warpgroups as their tiles times the wgmma phase 1
+        # found a tile; whole tiles, so the diagonal's masked half too),
+        # against the q.k of the (q tile, kv tile) pairs the causal mask
+        # leaves: 1.0 when every block issues q.k once a kv tile
+        counted = qk_times = None
+        if d > 128:
+            fa_ops.counted_products(which, reset=True)
+            fa_ops.flash_attention(q, k, v)
+            counted = fa_ops.counted_products(which, reset=True)
+            bq, bk = fa_ops._block_q(which, d), FLASH_WIDE_KV_ROWS[which]
+            pairs = sum(min(-(-l // bk), (min(q0 + bq, l) - 1) // bk + 1)
+                        for q0 in range(0, l, bq))
+            qk_times = counted[0] / (2 * b * h * pairs * bq * bk * d
+                                     * products)
+            print(f"flash_attention ({which}) at D {d} "
+                  f"{str(dtype).split('.')[-1]}: the kernel counted "
+                  f"{counted[0]:.4e} FLOP of q.k products and "
+                  f"{counted[1]:.4e} of P.V in a call, "
+                  f"{sum(counted) / flop:.4f} x the function's {flop:.4e}; "
+                  f"q.k {qk_times:.4f} time(s) a "
+                  f"(q tile, kv tile) pair of {bq} x {bk}"
+                  + (f" in {TF32_SPLIT_PRODUCTS} TF32 products"
+                     if products > 1 else "")
+                  + f"; {sum(counted) / out['ms'] / 1e9:.1f} TFLOP/s of "
+                  f"counted products [{card}]")
         out.update(shape=[b, h, l, l, d], flop=flop, bytes=n_bytes,
                    dtype=str(dtype).split(".")[-1], rounding_share=rounding,
                    tflop_s=flop / out["ms"] / 1e9,
+                   counted_qk_flop=counted and counted[0],
+                   counted_pv_flop=counted and counted[1],
+                   qk_per_tile_pair=qk_times,
                    bound_share=out["bound_ms"] / out["ms"])
         print(f"flash_attention ({which}) at B {b} H {h} L {l} D {d} "
               f"{out['dtype']} causal: kernel {out['ms']:.4f} ms "
@@ -3759,6 +3799,19 @@ def main(argv=None) -> int:
               f"shared memory a block"
               + (" (the wide kernel)" if d > fa_ops.TENSOR_CORE_HEAD_DIMS[-1]
                  else ""))
+    # each library's blocks a q tile against the wrapper's rule, which its
+    # grid checks and the CPU tests hold
+    for which, blocks in (
+            ("tensor_core", tc.flash_attention_wgmma_chunks),
+            ("tf32x3", libs["tf32x3"].flash_attention_tf32x3_chunks)):
+        differ = [d for d in range(16, 1025, 16)
+                  if blocks(d) != fa_ops.out_chunks(d)]
+        if differ:
+            raise AssertionError(f"the {which} kernel's blocks a q tile "
+                                 f"differ from ops.out_chunks at head_dims "
+                                 f"{differ}")
+    print("flash kernels' blocks a q tile equal ops.out_chunks at every "
+          "head_dim 16-1,024, in both libraries")
     # the tensor-core instructions each flash kernel must hold: warpgroup
     # products (HGMMA) in the bf16 kernel, mma.sync (HMMA) in split TF32
     tc_instructions = {}
@@ -3779,6 +3832,23 @@ def main(argv=None) -> int:
                                "flash_attention_wgmma_wide_kernelILi3E")
     print("flash_attention SASS by instantiation: " + ", ".join(
         f"head_dim {d}: {n} HGMMA" for d, n in hgmma.items()))
+    # the wide kernel counts its products as the tiles a warpgroup ran
+    # times the wgmma its loop body issues a tile (ops.counted_products,
+    # phase 8): 4 of q.k a region and 4 k-steps x the parts of P.V a
+    # region; the SASS holds that body once, one HGMMA a wgmma
+    listing = sass_listing(tc._name)
+    for owners, regions, multi in WIDE_INSTANTIATIONS:
+        found = len(re.findall(r"\bHGMMA\b", function_sass(
+            listing, f"flash_attention_wgmma_wide_kernelILi{fa_ops.P_PARTS}"
+                     f"ELi{owners}ELi{regions}ELb{multi}E")))
+        want = 4 * regions + 4 * regions * fa_ops.P_PARTS
+        print(f"wide kernel with {owners} owner(s) of {regions} regions"
+              f"{' in rounds' if multi else ''}: {found} HGMMA, the "
+              f"{want} wgmma it counts a tile")
+        if found != want:
+            raise AssertionError(f"the wide kernel ({owners}, {regions}, "
+                                 f"{multi}) holds {found} HGMMA, not the "
+                                 f"{want} it counts a tile")
     if not all(hgmma.values()):
         raise AssertionError(f"an instantiation of the tensor-core flash "
                              f"kernel has no HGMMA instruction: {hgmma}")
@@ -4253,8 +4323,7 @@ def main(argv=None) -> int:
             "decode_busy_share")},
         ssm_slstm_share=ssm_families["ssm"]["slstm_share"])
     # each kernel at its other timed shapes: the tensor-core one at
-    # zamba2-7b's head_dim 112 and at 256 and 512 (with the split-TF32
-    # library on its bf16 input at 256 beside it); the split-TF32 one in
+    # zamba2-7b's head_dim 112 and at 256 and 512; the split-TF32 one in
     # f32 at head_dims 112, 256 and 512
     for i, key, prefix in ((-2, "tensor_core_d112", "d112"),
                            (-2, "tensor_core_d256", "d256"),
@@ -4265,8 +4334,9 @@ def main(argv=None) -> int:
         t = flash[key]
         kernels[i].update({f"{prefix}_{k}": t[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "bound_share", "tflop_s", "rounding_share", "tf32x3_ms",
-            "tf32x3_issued_bound_ms", "shape") if t.get(k) is not None})
+            "bound_share", "tflop_s", "counted_qk_flop", "counted_pv_flop",
+            "qk_per_tile_pair", "rounding_share",
+            "shape") if t.get(k) is not None})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 // Forward flash attention for Hopper (sm_90a) on the tensor cores in split
 // TF32, bound to Python through ctypes: the route of float32 at every
 // head_dim (bfloat16 runs on flash_attention_wgmma.cu).  It is
-// instantiated at every multiple of 16 up to 256, in both types (bfloat16
-// is kept only to be timed against the tensor-core kernel); past 256 one
-// sliced kernel takes any multiple of 16 at run time, in float32.  The
+// instantiated at every multiple of 16 up to 256 in float32 (and up to 128
+// in bfloat16, which takes the tensor cores); past 256 one wide kernel
+// takes any multiple of 16 at run time, in float32.  The
 // wrapper zero-pads a head_dim between them up to the next one (QK^T reads
 // 16 head_dim columns at a time).
 //
@@ -59,28 +59,45 @@
 // way over 16 head_dim columns, so a thread's q and k fragments are one
 // 16-byte shared load each.  Row strides are padded so that those loads
 // and V's scalar loads meet no bank conflict.  O accumulates in registers
-// (half a block's output columns a thread, at most 64).  The k loop stops
+// (D / 2 f32 registers a thread, at most 128).  The k loop stops
 // at the last tile a causal row of the block can see, and only tiles on
 // the diagonal or the ragged end are masked.
 //
-// Past head_dim 128 the output's head_dim is split into two equal chunks
-// (at most 128 columns each) on the grid: each block computes S = QK^T
-// over the whole head_dim, as a D-128 block does, and accumulates only its
-// own chunk of O, reading only that chunk of V.  O's registers stay those
-// of D 128, and QK^T's work doubles.  The q tile and the 32-row K tiles
-// then take 93-173 KB of shared memory, one block an SM from D 192 up.
+// Past head_dim 128 a block still holds every output column of its q tile
+// and computes QK^T once a kv tile: at 144-256 each warp holds O for 16
+// rows and all of D (up to 128 f32 registers a thread), one block an SM
+// past D 144.  Past 128 each warp counts the mma.sync products it
+// issues, q.k and P.V apart, where it issues them, and adds them to the
+// card's counts at its end (flash_attention_tf32x3_products), so that a
+// caller sees QK^T issued once a kv tile; the instantiations up to 128
+// count nothing.
 //
-// Past head_dim 256 (the sliced kernel, float32) the output's head_dim is
-// cut into chunks of 128 columns on the grid, the last one narrower (a
-// multiple of 16), and QK^T runs over the head_dim in slices of 64
-// columns (the last narrower), summing S in registers over a kv tile's
-// slices, so shared memory no longer bounds D.  Each cp.async stage holds
-// one slice of q (64 rows) and of K (32 rows), q read again from L2 for
-// every kv tile, and V's chunk of a tile: 93 KB, two blocks an SM.  (With
-// q kept in shared memory, 206 KB at D 512, one block of 4 warps ran on
-// an SM, and it was slower; PERF.md, Findings.)
-// Instantiated once: the slice width is fixed, the number of slices a
-// run-time count.
+// Past head_dim 256 (the wide kernel, float32) O no longer fits four
+// warps' registers.  A block owns a 32-row q tile (2 row groups of 16)
+// and every output column up to D 512; its warps are the row groups x
+// column owners of 128 columns each (3 owners to D 384, 4 to 512, 64 f32
+// registers of O a thread).  Owner w of a row group computes the partial S
+// of head_dim columns 128w .. 128w + 127 (its q and K slices, split as
+// above), writes it to shared memory, and every owner of the row group
+// sums the group's partials in the owners' order: all hold the same S, run
+// the same softmax and split the same P, and each runs P.V on its own 128
+// columns of V.  The sum's order is fixed, so two launches give the same
+// bits.  K and V tiles of 32 rows have 2 stages where shared memory allows,
+// else 1: K of tile j + 1 then loads while tile j's softmax and P.V run, V
+// of tile j + 1 while its QK^T runs.  Past D 512 the output's columns are
+// cut into chunks of at most 384 on the grid (a 32-row O of all of D would
+// no longer fit the registers of 8 warps) and QK^T runs in rounds of 384
+// head_dim columns, q's slice loaded with K's.  Against the sliced kernel
+// it replaces (four 128-column chunks a q tile at D 512, each recomputing
+// and re-splitting QK^T over all of D), q is split once a kv tile, not once
+// a kv tile and chunk, and K once a row group and kv tile.  (Splitting K
+// and V once a kv tile into shared memory as they are staged would double
+// their footprint: at D 512 q, K and V already take 218 KB.)
+// Tried on the H100 and measured slower (PERF.md, Findings): this
+// wide kernel at D 144-256 (64 q rows, 2 owners), 1.4-2.5x the one-chunk
+// template's time: the partial S's, four barriers a tile and a last owner
+// of 16 or 80 columns at D 144 and 208 cost more than QK^T's half; and two
+// accumulators a warp for QK^T's independent products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,12 +118,9 @@ struct Strides {
 
 template <int D>
 struct Tile {
-  // the output's head_dim in equal chunks of at most 128 columns, one a
-  // block; a chunk is a multiple of 8 columns (an mma n-tile)
-  static constexpr int kChunks = (D + 127) / 128;
-  static constexpr int kOut = D / kChunks;
-  static_assert(D % 16 == 0 && kOut * kChunks == D && kOut % 8 == 0,
-                "head_dim must be a multiple of 16");
+  // a block holds every output column of its q tile (up to D 256, 128 f32
+  // registers of O a thread) and computes QK^T once a kv tile
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   // 32 keys past D 64: with 64 at D 112 the two stages would take 143 KB
   // and leave one block (4 warps) an SM
   static constexpr int kBlockK = D > 64 ? 32 : 64;
@@ -115,7 +129,7 @@ struct Tile {
   static constexpr int kQKRow = D % 32 == 16 ? D : D + 16;
   // v is read one word a thread from rows 2t and 2t + 1: a row stride of
   // 4 or 12 mod 16 words puts the four t on four distinct 8-bank groups
-  static constexpr int kVRow = kOut + 4;
+  static constexpr int kVRow = D + 4;
   static constexpr int kQWords = kBlockQ * kQKRow;
   static constexpr int kKWords = kBlockK * kQKRow;
   static constexpr int kVWords = kBlockK * kVRow;
@@ -140,6 +154,11 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
+
+// FLOP of the products the kernels past head_dim 128 have issued since the
+// last reset, counted by each warp where it issues them: [0] q.k, [1] P.V
+__device__ unsigned long long g_products[2];
+constexpr unsigned long long kMmaFlop = 2ull * 16 * 8 * 8;   // m16n8k8
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -219,7 +238,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);       // round to nearest even, as astype does
 }
 
-// two blocks an SM up to D 176 (at most 113,664 bytes of shared memory),
+// two blocks an SM up to D 144 (at most 113,664 bytes of shared memory),
 // one past it
 template <typename T, int D, bool kVec16>
 __global__ void __launch_bounds__(kThreads, Tile<D>::kMinBlocks)
@@ -232,18 +251,18 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   using Cfg = Tile<D>;
   constexpr int BK = Cfg::kBlockK;
   constexpr int NT = BK / 8;          // score n-tiles of a warp
-  constexpr int DO = Cfg::kOut;       // this block's output columns
-  constexpr int ND = DO / 8;          // output n-tiles of a warp
+  constexpr int ND = D / 8;           // output n-tiles of a warp
   constexpr int QK = Cfg::kQKRow, VR = Cfg::kVRow;
   constexpr bool kSplit = std::is_same<T, float>::value;
+  // past D 128 each warp counts the products it issues (g_products)
+  constexpr bool kCount = D > 128;
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;
   float* s_k = s_q + Cfg::kQWords;            // two stages
   float* s_v = s_k + 2 * Cfg::kKWords;        // two stages
 
-  // chunks fastest, then q tiles: a q tile's chunks run side by side
-  const int chunk = (int)(blockIdx.x % Cfg::kChunks);
-  const int tile = (int)(blockIdx.x / Cfg::kChunks);
+  // q tiles fastest within a head
+  const int tile = (int)blockIdx.x;
   const int bh = tile / q_tiles;
   const int qt = q_tiles - 1 - tile % q_tiles;
   const int b = bh / Hq, h = bh % Hq, hk = h / group;
@@ -254,8 +273,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h + chunk * DO;
-  T* ob = out + b * os.b + h * os.h + chunk * DO;
+  const T* vb = v + b * vs.b + hk * vs.h;
+  T* ob = out + b * os.b + h * os.h;
 
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) {
@@ -267,7 +286,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   load_rows<T, D, kVec16>(s_q, QK, qb, qs.s, q0, kBlockQ, Lq);
   if (n_tiles > 0) {
     load_rows<T, D, kVec16>(s_k, QK, kb, ks.s, 0, BK, Lk);
-    load_rows<T, DO, kVec16>(s_v, VR, vb, vs.s, 0, BK, Lk);
+    load_rows<T, D, kVec16>(s_v, VR, vb, vs.s, 0, BK, Lk);
   }
   cp_async_commit();
 
@@ -278,6 +297,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};    // rows g and g + 8
   float l_part[2] = {0.f, 0.f};               // this thread's columns only
+  uint32_t n_qk = 0, n_pv = 0;                // products issued (kCount)
   const int row_lo = q0 + warp * 16 + g;
   const float* q_lo = s_q + (warp * 16 + g) * QK + 4 * t;
   const float* q_hi = q_lo + 8 * QK;
@@ -288,8 +308,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
     if (it + 1 < n_tiles) {                   // the next tile, other stage
       load_rows<T, D, kVec16>(s_k + (st ^ 1) * Cfg::kKWords, QK, kb, ks.s,
                               k0 + BK, BK, Lk);
-      load_rows<T, DO, kVec16>(s_v + (st ^ 1) * Cfg::kVWords, VR, vb, vs.s,
-                               k0 + BK, BK, Lk);
+      load_rows<T, D, kVec16>(s_v + (st ^ 1) * Cfg::kVWords, VR, vb, vs.s,
+                              k0 + BK, BK, Lk);
     }
     cp_async_commit();
     cp_async_wait<1>();                       // this tile has landed
@@ -334,6 +354,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
             mma(s[n], a_small[ksi], b_big[0], b_big[1]);
             mma(s[n], a_big[ksi], b_small[0], b_small[1]);
             mma(s[n], a_big[ksi], b_big[0], b_big[1]);
+            if constexpr (kCount) n_qk += 3;
           } else {
             mma(s[n], a_big[ksi], __float_as_uint(b_raw[ksi][0]),
                 __float_as_uint(b_raw[ksi][1]));
@@ -408,6 +429,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
           mma(o[j], p_small, v_big[0], v_big[1]);
           mma(o[j], p_big, v_small[0], v_small[1]);
           mma(o[j], p_big, v_big[0], v_big[1]);
+          if constexpr (kCount) n_pv += 3;
         } else {
           mma(o[j], p_small, __float_as_uint(b0), __float_as_uint(b1));
           mma(o[j], p_big, __float_as_uint(b0), __float_as_uint(b1));
@@ -433,6 +455,12 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
       orow[j * 8 + 1] = from_float<T>(o[j][2 * i + 1] * inv);
     }
   }
+  if constexpr (kCount) {
+    if (lane == 0) {
+      atomicAdd(&g_products[0], kMmaFlop * n_qk);
+      atomicAdd(&g_products[1], kMmaFlop * n_pv);
+    }
+  }
 }
 
 template <typename T, int D, bool kVec16>
@@ -447,7 +475,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (Lq + kBlockQ - 1) / kBlockQ;
-  const long long blocks = (long long)B * Hq * q_tiles * Tile<D>::kChunks;
+  const long long blocks = (long long)B * Hq * q_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -471,8 +499,9 @@ cudaError_t launch_vec(bool vec16, const void* q, const void* k,
                              Lk, causal, scale_log2, stream);
 }
 
-// every multiple of 16 up to 256, in float32 and bfloat16 (bfloat16 at 64
-// and 128 is the tensor-core route's, and here serves a padded head_dim)
+// every multiple of 16 up to 256 in float32, up to 128 in bfloat16
+// (bfloat16 is the tensor-core route's; its instantiations serve tests of
+// this library and the bf16 tests' padded head_dims)
 template <typename T>
 cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
                        const void* v, void* out, Strides qs, Strides ks,
@@ -492,6 +521,9 @@ cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
     FA_HEAD_DIM(96)
     FA_HEAD_DIM(112)
     FA_HEAD_DIM(128)
+  }
+  // float32 takes 144-256 here too (bfloat16 runs on the tensor cores)
+  if constexpr (std::is_same<T, float>::value) switch (D) {
     FA_HEAD_DIM(144)
     FA_HEAD_DIM(160)
     FA_HEAD_DIM(176)
@@ -505,31 +537,69 @@ cudaError_t launch_dim(int D, bool vec16, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// -- the sliced kernel: float32 past head_dim 256 --------------------------
+// -- past head_dim 256: a block owns a q tile and every output column -----
 
-constexpr int kSliceColumns = 64;               // QK^T columns a slice
-constexpr int kSliceRow = kSliceColumns + 16;   // 16 mod 32 words: no conflict
-constexpr int kSlicedBlockK = 32;               // kv rows a tile
-constexpr int kSlicedOut = 128;                 // output columns a block
-constexpr int kSlicedVRow = kSlicedOut + 4;
-// a stage: K's slice of a tile, then q's slice of the block's rows
-constexpr int kSlicedKWords = kSlicedBlockK * kSliceRow;
-constexpr int kSlicedStageWords = kSlicedKWords + kBlockQ * kSliceRow;
-constexpr int kSlicedVWords = kSlicedBlockK * kSlicedVRow;
-constexpr size_t kSlicedSmemBytes =
-    sizeof(float) * 2 * (kSlicedStageWords + kSlicedVWords);
+constexpr int kWideBlockK = 32;        // kv rows a tile
+constexpr int kOwnerColumns = 128;     // q.k and output columns a warp
+constexpr int kWideThreads = 256;      // the most a block has: 8 warps
+constexpr int kMaxWideSmem = 232448;   // a block's shared memory
+
+// The wide kernel's geometry at head_dim D (past 256), the same on the host
+// and the card.  Up to D 512 a block owns a 32-row q tile (so that q, K and
+// V fit shared memory) and all of D's output columns; past it the columns
+// are cut into chunks of at most 384 (a multiple of 64, the last
+// narrower), one a block.  Its warps are row groups of 16 q rows x
+// `owners` column owners of 128 columns each.  QK^T runs in rounds of
+// owners x 128 head_dim columns: one up to D 512, q then staying in shared
+// memory; past it q's slice of a round is loaded with K's.
+struct WideLayout {
+  int chunk_cols, chunks, owners, rows, warps, width, rounds;
+  bool q_resident;
+  int qk_row, v_row;                  // row strides in floats
+  int q_words, k_words, v_words, part_words;
+  int stages;                         // of K and of V: 2 where they fit
+
+  __host__ __device__ explicit WideLayout(int D) {
+    const int per = D <= 512 ? 1 : (D + 383) / 384;
+    chunk_cols = per == 1 ? D : ((D + per - 1) / per + 63) / 64 * 64;
+    chunks = (D + chunk_cols - 1) / chunk_cols;
+    owners = (chunk_cols + kOwnerColumns - 1) / kOwnerColumns;
+    rows = 32;
+    warps = rows / 16 * owners;
+    width = owners * kOwnerColumns;
+    rounds = (D + width - 1) / width;
+    q_resident = rounds == 1;
+    // 16 mod 32 words, as Tile's kQKRow; 4 mod 16 words, as Tile's kVRow
+    const int w = q_resident ? D : width;
+    qk_row = w % 32 == 16 ? w : w + 16;
+    v_row = chunk_cols + 4;
+    q_words = rows * qk_row;
+    k_words = kWideBlockK * qk_row;
+    v_words = kWideBlockK * v_row;
+    part_words = warps * 16 * 32;     // each warp's S fragments
+    stages = q_resident && words(2) * sizeof(float) <= kMaxWideSmem ? 2 : 1;
+  }
+  __host__ __device__ int words(int n) const {
+    return q_words + n * (k_words + v_words) + part_words;
+  }
+  __host__ __device__ size_t smem_bytes() const {
+    return sizeof(float) * words(stages);
+  }
+};
 
 // rows [row0, row0 + rows) of `cols` float32 columns (a multiple of 4)
 // from `src`, rows `stride` apart, into shared rows of `dst_row` floats by
-// cp.async, 16 bytes (kVec16) or 4 a copy; rows at or past L are zero
+// cp.async, 16 bytes (kVec16) or 4 a copy, `threads` threads sharing the
+// copies; rows at or past L are zero
 template <bool kVec16>
 __device__ __forceinline__ void load_columns(float* dst, int dst_row,
                                              const float* src,
                                              long long stride, int row0,
-                                             int rows, int L, int cols) {
+                                             int rows, int L, int cols,
+                                             int threads) {
   constexpr int kChunk = kVec16 ? 4 : 1;
   const int per_row = cols / kChunk;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * per_row; i += threads) {
     const int r = i / per_row, c = i % per_row * kChunk;
     const bool ok = row0 + r < L;
     const float* p = src + (ok ? (long long)(row0 + r) * stride + c : 0);
@@ -540,65 +610,155 @@ __device__ __forceinline__ void load_columns(float* dst, int dst_row,
   }
 }
 
-// two blocks an SM: 93 KB of shared memory a block
-template <bool kVec16>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_tf32x3_sliced_kernel(const float* __restrict__ q,
-                                     const float* __restrict__ k,
-                                     const float* __restrict__ v,
-                                     float* __restrict__ out, Strides qs,
-                                     Strides ks, Strides vs, Strides os,
-                                     int Hq, int group, int Lq, int Lk, int D,
-                                     int q_tiles, int causal,
-                                     float scale_log2) {
-  constexpr int BK = kSlicedBlockK;
-  constexpr int NT = BK / 8;          // score n-tiles of a warp
-  constexpr int ND = kSlicedOut / 8;  // output n-tiles of a warp
-  const int slices = (D + kSliceColumns - 1) / kSliceColumns;
-  extern __shared__ __align__(16) float smem[];
-  float* s_k = smem;                          // two stages, q's slice in each
-  float* s_v = s_k + 2 * kSlicedStageWords;   // two stages
+// S[NT] += q . k over `groups` 16-column groups of one warp's slice, each
+// f32 operand split into TF32 big and small parts (kGroups: a count known
+// at compile time, so that the loop unrolls and its loads run ahead; 0
+// takes `groups`); n_qk counts the m16n8k8 products issued
+template <int kGroups, int NT>
+__device__ __forceinline__ void qk_slice(float (&s)[NT][4], const float* q_lo,
+                                         const float* q_hi, const float* Ks,
+                                         int k_row, int groups,
+                                         uint32_t& n_qk) {
+  const int n_groups = kGroups > 0 ? kGroups : groups;
+#pragma unroll
+  for (int dg = 0; dg < n_groups; ++dg) {
+    const float4 qa = *reinterpret_cast<const float4*>(q_lo + dg * 16);
+    const float4 qc = *reinterpret_cast<const float4*>(q_hi + dg * 16);
+    const float a_raw[2][4] = {{qa.x, qc.x, qa.y, qc.y},
+                               {qa.z, qc.z, qa.w, qc.w}};
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int ksi = 0; ksi < 2; ++ksi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split(a_raw[ksi][e], a_big[ksi][e], a_small[ksi][e]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 kk =
+          *reinterpret_cast<const float4*>(Ks + n * 8 * k_row + dg * 16);
+      const float b_raw[2][2] = {{kk.x, kk.y}, {kk.z, kk.w}};
+#pragma unroll
+      for (int ksi = 0; ksi < 2; ++ksi) {
+        uint32_t b_big[2], b_small[2];
+        split(b_raw[ksi][0], b_big[0], b_small[0]);
+        split(b_raw[ksi][1], b_big[1], b_small[1]);
+        mma(s[n], a_small[ksi], b_big[0], b_big[1]);
+        mma(s[n], a_big[ksi], b_small[0], b_small[1]);
+        mma(s[n], a_big[ksi], b_big[0], b_big[1]);
+        n_qk += 3;
+      }
+    }
+  }
+}
 
-  // chunks fastest, then q tiles: a q tile's chunks run side by side
-  const int n_chunks = (D + kSlicedOut - 1) / kSlicedOut;
-  const int chunk = (int)(blockIdx.x % n_chunks);
-  const int tile = (int)(blockIdx.x / n_chunks);
+// O[ND] += P V over `tiles` 8-column n-tiles of one warp's columns, P's
+// C fragments as A (kTiles as kGroups above); n_pv counts the products
+template <int kTiles, int NT, int ND>
+__device__ __forceinline__ void pv_slice(float (&o)[ND][4],
+                                         const float (&s)[NT][4],
+                                         const float* Vs, int v_row,
+                                         int tiles, uint32_t& n_pv) {
+  const int n_tiles = kTiles > 0 ? kTiles : tiles;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float p_raw[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
+    uint32_t p_big[4], p_small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(p_raw[e], p_big[e], p_small[e]);
+    const float* v0 = Vs + n * 8 * v_row;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      if (j >= n_tiles) break;
+      const float b0 = v0[j * 8], b1 = v0[v_row + j * 8];
+      uint32_t v_big[2], v_small[2];
+      split(b0, v_big[0], v_small[0]);
+      split(b1, v_big[1], v_small[1]);
+      mma(o[j], p_small, v_big[0], v_big[1]);
+      mma(o[j], p_big, v_small[0], v_small[1]);
+      mma(o[j], p_big, v_big[0], v_big[1]);
+      n_pv += 3;
+    }
+  }
+}
+
+// float32 past D 256 only; one block an SM (up to 218 KB of shared memory)
+template <bool kVec16>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_attention_tf32x3_wide_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   float* __restrict__ out, Strides qs,
+                                   Strides ks, Strides vs, Strides os, int Hq,
+                                   int group, int Lq, int Lk, int D,
+                                   int q_tiles, int causal, float scale_log2) {
+  constexpr int BK = kWideBlockK;
+  constexpr int NT = BK / 8;              // score n-tiles of a warp
+  constexpr int ND = kOwnerColumns / 8;   // output n-tiles of a warp
+  const WideLayout lay(D);
+  const int threads = 32 * lay.warps;
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;
+  float* s_k = s_q + lay.q_words;                 // stages slots
+  float* s_v = s_k + lay.stages * lay.k_words;    // stages slots
+  float* s_part = s_v + lay.stages * lay.v_words;
+
+  // chunks fastest, then q tiles, longest first
+  const int chunk = (int)(blockIdx.x % lay.chunks);
+  const int tile = (int)(blockIdx.x / lay.chunks);
   const int bh = tile / q_tiles;
   const int qt = q_tiles - 1 - tile % q_tiles;
   const int b = bh / Hq, h = bh % Hq, hk = h / group;
-  const int q0 = qt * kBlockQ;
-  const int c_cols = min(kSlicedOut, D - chunk * kSlicedOut);
+  const int q0 = qt * lay.rows;
+  const int c0 = chunk * lay.chunk_cols;          // first output column
+  const int c_cols = min(lay.chunk_cols, D - c0);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;       // mma group, thread in group
-  const int offset = Lk - Lq;                 // end-aligned causal offset
+  const int g = lane / 4, t = lane % 4;           // mma group, thread in group
+  const int rg = warp / lay.owners;               // row group: 16 q rows
+  const int cw = warp % lay.owners;               // column owner
+  const int offset = Lk - Lq;                     // end-aligned causal offset
+  // this warp's output columns of the chunk (none past its end)
+  const int out_cols = min(kOwnerColumns, c_cols - kOwnerColumns * cw);
 
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h + chunk * kSlicedOut;
-  float* ob = out + b * os.b + h * os.h + chunk * kSlicedOut;
+  const float* vb = v + b * vs.b + hk * vs.h + c0;
+  float* ob = out + b * os.b + h * os.h + c0;
 
   int n_tiles = (Lk + BK - 1) / BK;
   if (causal) {
-    const int last_visible = min(q0 + kBlockQ, Lq) - 1 + offset;
+    // the last column any row of this tile sees; later k tiles are skipped
+    const int last_visible = min(q0 + lay.rows, Lq) - 1 + offset;
     n_tiles = last_visible < 0 ? 0 : min(n_tiles, last_visible / BK + 1);
   }
-  const int n_steps = n_tiles * slices;       // (tile, slice) in order
-  // step i's K and q slices into stage i & 1; its tile's V chunk with the
-  // tile's first slice
-  auto load_step = [&](int i) {
-    const int j = i / slices, sl = i % slices;
-    const int c = sl * kSliceColumns;
-    const int cols = min(kSliceColumns, D - c);
-    float* stage = s_k + (i & 1) * kSlicedStageWords;
-    load_columns<kVec16>(stage, kSliceRow, kb + c, ks.s, j * BK, BK, Lk, cols);
-    load_columns<kVec16>(stage + kSlicedKWords, kSliceRow, qb + c, qs.s, q0,
-                         kBlockQ, Lq, cols);
-    if (sl == 0)
-      load_columns<kVec16>(s_v + (j & 1) * kSlicedVWords, kSlicedVRow, vb,
-                           vs.s, j * BK, BK, Lk, c_cols);
+  // K's columns of round r of tile j into its slot, with q's unless q
+  // stays; V's chunk of tile j into its slot
+  auto load_k = [&](int j, int r) {
+    const int c = r * lay.width;
+    const int cols = min(lay.width, D - c);
+    load_columns<kVec16>(s_k + j % lay.stages * lay.k_words, lay.qk_row,
+                         kb + c, ks.s, j * BK, BK, Lk, cols, threads);
+    if (!lay.q_resident)
+      load_columns<kVec16>(s_q, lay.qk_row, qb + c, qs.s, q0, lay.rows, Lq,
+                           cols, threads);
   };
-  if (n_steps > 0) load_step(0);
-  cp_async_commit();
+  auto load_v = [&](int j) {
+    load_columns<kVec16>(s_v + j % lay.stages * lay.v_words, lay.v_row, vb,
+                         vs.s, j * BK, BK, Lk, c_cols, threads);
+  };
+  // cp.async groups in order: K and V of tiles 0 .. stages - 1, then for
+  // each tile j, K of tile j + stages once tile j's QK^T is done and V of
+  // tile j + stages once its P.V is done; a wait leaves 2 stages - 1
+  // younger groups in flight.  With one stage, K of tile j + 1 loads while
+  // tile j's softmax and P.V run, V of tile j + 1 while its QK^T runs.
+  if (n_tiles > 0 && lay.q_resident)
+    load_columns<kVec16>(s_q, lay.qk_row, qb, qs.s, q0, lay.rows, Lq, D,
+                         threads);
+  for (int j = 0; j < lay.stages; ++j) {
+    if (j < n_tiles) load_k(j, 0);
+    cp_async_commit();
+    if (j < n_tiles) load_v(j);
+    cp_async_commit();
+  }
 
   float o[ND][4];
 #pragma unroll
@@ -607,61 +767,69 @@ flash_attention_tf32x3_sliced_kernel(const float* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};    // rows g and g + 8
   float l_part[2] = {0.f, 0.f};               // this thread's columns only
-  const int row_lo = q0 + warp * 16 + g;
+  uint32_t n_qk = 0, n_pv = 0;                // products issued
+  const int row_lo = q0 + rg * 16 + g;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
+    // -- this warp's partial S: q . k over its 128 columns of each round
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    // -- S = Q K^T, a slice of 64 head_dim columns at a time
-    for (int sl = 0; sl < slices; ++sl) {
-      const int i = it * slices + sl;
-      if (i + 1 < n_steps) load_step(i + 1);  // the next step, other stage
-      cp_async_commit();
-      cp_async_wait<1>();                     // this step has landed
+    for (int r = 0; r < lay.rounds; ++r) {
+      if (r > 0)
+        cp_async_wait<0>();                   // the round just loaded
+      else if (lay.stages == 2)
+        cp_async_wait<3>();
+      else
+        cp_async_wait<1>();
       __syncthreads();
-      const float* stage = s_k + (i & 1) * kSlicedStageWords;
+      const int cols = min(lay.width, D - r * lay.width);
+      const int groups =
+          max(0, min(kOwnerColumns, cols - kOwnerColumns * cw)) / 16;
       const float* q_lo =
-          stage + kSlicedKWords + (warp * 16 + g) * kSliceRow + 4 * t;
-      const float* q_hi = q_lo + 8 * kSliceRow;
-      const float* Ks = stage + g * kSliceRow + 4 * t;
-      const int groups = min(kSliceColumns, D - sl * kSliceColumns) / 16;
-      for (int dg = 0; dg < groups; ++dg) {
-        const float4 qa = *reinterpret_cast<const float4*>(q_lo + dg * 16);
-        const float4 qc = *reinterpret_cast<const float4*>(q_hi + dg * 16);
-        const float a_raw[2][4] = {{qa.x, qc.x, qa.y, qc.y},
-                                   {qa.z, qc.z, qa.w, qc.w}};
-        uint32_t a_big[2][4], a_small[2][4];
-#pragma unroll
-        for (int ksi = 0; ksi < 2; ++ksi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split(a_raw[ksi][e], a_big[ksi][e], a_small[ksi][e]);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const float4 kk = *reinterpret_cast<const float4*>(
-              Ks + n * 8 * kSliceRow + dg * 16);
-          const float b_raw[2][2] = {{kk.x, kk.y}, {kk.z, kk.w}};
-#pragma unroll
-          for (int ksi = 0; ksi < 2; ++ksi) {
-            uint32_t b_big[2], b_small[2];
-            split(b_raw[ksi][0], b_big[0], b_small[0]);
-            split(b_raw[ksi][1], b_big[1], b_small[1]);
-            mma(s[n], a_small[ksi], b_big[0], b_big[1]);
-            mma(s[n], a_big[ksi], b_small[0], b_small[1]);
-            mma(s[n], a_big[ksi], b_big[0], b_big[1]);
-          }
-        }
+          s_q + (rg * 16 + g) * lay.qk_row + kOwnerColumns * cw + 4 * t;
+      const float* Ks = s_k + it % lay.stages * lay.k_words +
+                        g * lay.qk_row + kOwnerColumns * cw + 4 * t;
+      if (groups == kOwnerColumns / 16)
+        qk_slice<kOwnerColumns / 16>(s, q_lo, q_lo + 8 * lay.qk_row, Ks,
+                                     lay.qk_row, groups, n_qk);
+      else
+        qk_slice<0>(s, q_lo, q_lo + 8 * lay.qk_row, Ks, lay.qk_row, groups,
+                    n_qk);
+      if (r + 1 < lay.rounds) {
+        __syncthreads();                      // the round's slot is read
+        load_k(it, r + 1);
+        cp_async_commit();
       }
-      if (sl + 1 < slices) __syncthreads();   // the stage is free again
     }
+
+    // -- the row group's partial S's meet in shared memory; every owner
+    // sums them in the owners' order, so all hold the same S and P
+    float* mine = s_part + warp * 512;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32 + lane] = s[n][e];
+    __syncthreads();                          // K is read, every part written
+    if (it + lay.stages < n_tiles) load_k(it + lay.stages, 0);
+    cp_async_commit();
+    const float* row_parts = s_part + rg * lay.owners * 512;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = row_parts[(n * 4 + e) * 32 + lane];
+        for (int w = 1; w < lay.owners; ++w)
+          x += row_parts[w * 512 + (n * 4 + e) * 32 + lane];
+        s[n][e] = x;
+      }
 
     // -- online softmax in registers, base 2, as in the kernel above
     const bool edge = k0 + BK > Lk ||
-                      (causal && k0 + BK - 1 > q0 + warp * 16 + offset);
+                      (causal && k0 + BK - 1 > q0 + rg * 16 + offset);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -704,28 +872,21 @@ flash_attention_tf32x3_sliced_kernel(const float* __restrict__ q,
       o[j][3] *= alpha[1];
     }
 
-    // -- O += P V over the chunk's live columns, P's C fragment as A
-    const float* Vs = s_v + (it & 1) * kSlicedVWords + 2 * t * kSlicedVRow + g;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const float p_raw[4] = {s[n][0], s[n][2], s[n][1], s[n][3]};
-      uint32_t p_big[4], p_small[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split(p_raw[e], p_big[e], p_small[e]);
-      const float* v0 = Vs + n * 8 * kSlicedVRow;
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        if (8 * j >= c_cols) break;
-        const float b0 = v0[j * 8], b1 = v0[kSlicedVRow + j * 8];
-        uint32_t v_big[2], v_small[2];
-        split(b0, v_big[0], v_small[0]);
-        split(b1, v_big[1], v_small[1]);
-        mma(o[j], p_small, v_big[0], v_big[1]);
-        mma(o[j], p_big, v_small[0], v_small[1]);
-        mma(o[j], p_big, v_big[0], v_big[1]);
-      }
-    }
-    __syncthreads();                          // both stages free again
+    // -- O += P V over this warp's columns of the chunk
+    if (lay.stages == 2)
+      cp_async_wait<3>();                     // V of this tile has landed
+    else
+      cp_async_wait<1>();
+    __syncthreads();
+    const float* Vs = s_v + it % lay.stages * lay.v_words +
+                      2 * t * lay.v_row + kOwnerColumns * cw + g;
+    if (out_cols == kOwnerColumns)
+      pv_slice<ND>(o, s, Vs, lay.v_row, ND, n_pv);
+    else
+      pv_slice<0>(o, s, Vs, lay.v_row, max(0, out_cols) / 8, n_pv);
+    __syncthreads();                          // V's slot is read
+    if (it + lay.stages < n_tiles) load_v(it + lay.stages);
+    cp_async_commit();
   }
   cp_async_wait<0>();
 
@@ -737,32 +898,36 @@ flash_attention_tf32x3_sliced_kernel(const float* __restrict__ q,
     const int row = row_lo + 8 * i;
     if (row >= Lq) continue;
     const float inv = 1.f / (l == 0.f ? 1.f : l);  // a masked row gives 0
-    float* orow = ob + (long long)row * os.s + 2 * t;
+    float* orow = ob + (long long)row * os.s + kOwnerColumns * cw + 2 * t;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      if (8 * j >= c_cols) break;
+      if (8 * j >= out_cols) break;
       orow[j * 8] = o[j][2 * i] * inv;
       orow[j * 8 + 1] = o[j][2 * i + 1] * inv;
     }
   }
+  if (lane == 0) {
+    atomicAdd(&g_products[0], kMmaFlop * n_qk);
+    atomicAdd(&g_products[1], kMmaFlop * n_pv);
+  }
 }
 
 template <bool kVec16>
-cudaError_t launch_sliced(const void* q, const void* k, const void* v,
-                          void* out, Strides qs, Strides ks, Strides vs,
-                          Strides os, int B, int Hq, int Hkv, int Lq, int Lk,
-                          int D, int causal, float scale_log2,
-                          cudaStream_t stream) {
-  const auto kernel = flash_attention_tf32x3_sliced_kernel<kVec16>;
-  constexpr size_t smem = kSlicedSmemBytes;
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, Strides qs, Strides ks, Strides vs,
+                        Strides os, int B, int Hq, int Hkv, int Lq, int Lk,
+                        int D, int causal, float scale_log2,
+                        cudaStream_t stream) {
+  const auto kernel = flash_attention_tf32x3_wide_kernel<kVec16>;
+  const WideLayout lay(D);
+  const size_t smem = lay.smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (Lq + kBlockQ - 1) / kBlockQ;
-  const long long blocks = (long long)B * Hq * q_tiles *
-                           ((D + kSlicedOut - 1) / kSlicedOut);
+  const int q_tiles = (Lq + lay.rows - 1) / lay.rows;
+  const long long blocks = (long long)B * Hq * q_tiles * lay.chunks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)blocks, 32 * lay.warps, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), qs, ks, vs, os,
       Hq, Hq / Hkv, Lq, Lk, D, q_tiles, causal, scale_log2);
@@ -805,12 +970,12 @@ int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v,
   const bool vec16 = aligned16(q, qs) && aligned16(k, ks) && aligned16(v, vs);
   const float scale_log2 = (float)((double)sm_scale * 1.4426950408889634);
   if (D > 256 && D % 16 == 0 && dtype == 0)
-    return (int)(vec16 ? launch_sliced<true>(q, k, v, out, qs, ks, vs, os, B,
-                                             Hq, Hkv, Lq, Lk, D, causal,
-                                             scale_log2, stream)
-                       : launch_sliced<false>(q, k, v, out, qs, ks, vs, os, B,
-                                              Hq, Hkv, Lq, Lk, D, causal,
-                                              scale_log2, stream));
+    return (int)(vec16 ? launch_wide<true>(q, k, v, out, qs, ks, vs, os, B, Hq,
+                                           Hkv, Lq, Lk, D, causal, scale_log2,
+                                           stream)
+                       : launch_wide<false>(q, k, v, out, qs, ks, vs, os, B,
+                                            Hq, Hkv, Lq, Lk, D, causal,
+                                            scale_log2, stream));
   switch (dtype) {
     case 0:
       return (int)launch_dim<float>(D, vec16, q, k, v, out, qs, ks, vs, os, B,
@@ -823,6 +988,31 @@ int flash_attention_tf32x3_launch(const void* q, const void* k, const void* v,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The FLOP of the products the kernels past head_dim 128 have issued on
+// card `device` since the last reset, as their warps count them where they
+// issue each one (each split-TF32 product three m16n8k8 ones): q.k into
+// flop[0], P.V into flop[1].  reset != 0 zeroes the counts after reading
+// them.  Returns a CUDA error (0 on success); synchronizes with the card's
+// work on the legacy stream.
+int flash_attention_tf32x3_products(long long* flop, int reset, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(flop, g_products, 2 * sizeof(long long));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[2] = {0, 0};
+    err = cudaMemcpyToSymbol(g_products, zero, sizeof zero);
+  }
+  return (int)err;
+}
+
+// Blocks the kernel gives a q tile at head_dim D (a positive multiple of
+// 16) in float32: 1 up to 512, past it WideLayout(D).chunks; 0 for another
+// D.
+int flash_attention_tf32x3_chunks(int D) {
+  if (D % 16 != 0 || D < 16) return 0;
+  return D > 256 ? WideLayout(D).chunks : 1;
 }
 
 }  // extern "C"

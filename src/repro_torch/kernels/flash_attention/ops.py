@@ -27,13 +27,25 @@ a call takes from its dtype alone:
   each product the sum of three TF32 products, which keeps f32 accuracy.
   It takes any base and strides, copying 16 bytes at a time where they
   allow.  It is instantiated at the head_dims of :data:`HEAD_DIMS` and,
-  past them, a sliced kernel that takes the head_dim at run time.
+  past them, a wide kernel that takes the head_dim at run time.
 
-Past head_dim 128, on either route, a block writes one chunk of at most
-128 of the output's columns (:func:`out_chunks`), after computing q.k
-over the whole head_dim; past 256 the split-TF32 kernel, and past 128 the
-tensor-core one, read q.k's head_dim in slices, so that shared memory
-bounds no head_dim: only the grid can refuse a call (:func:`_check_grid`).
+Past head_dim 128, on either route, a block owns a q tile and every
+output column up to head_dim 512 (:func:`out_chunks`), and computes q.k
+once a kv tile.  Up to 256 one warpgroup (tensor cores) or each warp of
+16 rows (split TF32) holds all of them; past 256 the warpgroups or warps
+of a row group each own 128 of the output's columns and the same 128 of
+q.k's head_dim, and add their partial scores through shared memory in a
+fixed order.  Past 512 the output's columns no longer fit a block's
+registers, so they are cut into chunks of at most 384, one a block, and
+each block reads q.k's head_dim in rounds: shared memory bounds no
+head_dim, and only the grid can refuse a call (:func:`_check_grid`).
+Each library keeps its own copy of that rule and reports its count of
+blocks a q tile (``flash_attention_*_chunks``), which a card test holds
+to :func:`out_chunks`.  The kernels past 128 count the products they
+issue (:func:`counted_products`).  On the tensor
+cores a tile's P.V is summed from zero and added to O in f32 past 256;
+up to 256 it is added to O as it is issued, which a warpgroup's registers
+force and which rounds more of the outputs unlike f32 attention.
 
 On either route a head_dim that is not a multiple of 16 runs on copies of
 q, k and v zero-padded to the next one (:func:`kernel_head_dim`): zero
@@ -71,8 +83,9 @@ from .. import _build
 from .._launch import launch_args, on_cpu
 from . import ref
 
-__all__ = ["flash_attention", "counts", "load", "route", "kernel_head_dim",
-           "out_chunks", "HEAD_DIMS", "ROUTES", "TENSOR_CORE_HEAD_DIMS"]
+__all__ = ["flash_attention", "counts", "counted_products", "load", "route",
+           "kernel_head_dim", "out_chunks", "HEAD_DIMS", "ROUTES",
+           "TENSOR_CORE_HEAD_DIMS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -85,21 +98,28 @@ _LIBRARIES = {
         # q, k, v, out, dtype, B, Hq, Hkv, Lq, Lk, D, causal, sm_scale, ...
         "flash_attention_tf32x3_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, ctypes.c_float,
-                                          *_TAIL]}),
+                                          *_TAIL],
+        # flop[2], reset, device: the products counted past head_dim 128
+        "flash_attention_tf32x3_products": [_P, _I, _I],
+        # D -> blocks a q tile
+        "flash_attention_tf32x3_chunks": [_I]}),
     "tensor_core": ("flash_attention_wgmma",
                     (_CSRC / "flash_attention_wgmma.cu",), {
         # q, k, v, out, B, Hq, Hkv, Lq, Lk, D, p_parts, causal, sm_scale, ...
         "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          _I, _I, _I, ctypes.c_float, *_TAIL],
         # D -> dynamic shared memory of a block, in bytes
-        "flash_attention_wgmma_smem_bytes": [_I]}),
+        "flash_attention_wgmma_smem_bytes": [_I],
+        "flash_attention_wgmma_products": [_P, _I, _I],
+        "flash_attention_wgmma_chunks": [_I]}),
 }
 ROUTES = tuple(_LIBRARIES)
 #: head_dims the split-TF32 kernel is instantiated for (its QK^T reads 16
-#: head_dim columns at a time); past them its sliced kernel takes any
+#: head_dim columns at a time); past them its wide kernel takes any
 #: multiple of 16 in float32
 HEAD_DIMS = tuple(range(16, 257, 16))
-_OUT_COLUMNS = 128        # most output columns a block of either route holds
+_WHOLE_D = 512            # head_dims whose output columns one block holds
+_CHUNK_COLUMNS = 384      # most output columns a block holds past them
 #: head_dims the tensor-core kernel is instantiated for, in bfloat16 (its
 #: QK^T reads 16 head_dim columns at a time, its P.V writes 64 or fewer);
 #: past them its wide kernel takes any multiple of 16
@@ -112,7 +132,6 @@ _TMA_REFUSED_DIMS = (64, 128)
 #: version's f32 attention; fewer are faster and drift further
 P_PARTS = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_Q = {"tf32x3": 64, "tensor_core": 128}   # q rows per block
 _INT_MAX = 2 ** 31 - 1    # a grid's x limit
 _TMA_ALIGN = 16           # bytes, of a TMA tensor map's base and strides
 
@@ -133,6 +152,30 @@ def load(which: str = "tensor_core") -> ctypes.CDLL:
     """Build (at first use) and load the library of route ``which``."""
     name, sources, signatures = _LIBRARIES[which]
     return _build.load_library(name, sources, signatures)
+
+
+def counted_products(which: str, device: Optional[int] = None,
+                     reset: bool = False) -> tuple[int, int]:
+    """The FLOP of q.k products and of P.V products that route ``which``'s
+    kernels past head_dim 128 have issued on card ``device`` (the current
+    one by default) since the last reset, as the kernels count them (the
+    kernels up to 128 count none): split TF32's warps where they issue
+    each product, the tensor cores' warpgroups as the tiles they ran times
+    the products their loop body issues a tile.  Whole tiles count, masked
+    columns included; a split-TF32 product counts as its three TF32 ones.
+    ``reset`` zeroes the counts after reading them.  Waits for the card's
+    work first."""
+    dev = torch.cuda.current_device() if device is None else device
+    torch.cuda.synchronize(dev)
+    flop = (ctypes.c_longlong * 2)()
+    lib = load(which)
+    read = (lib.flash_attention_tf32x3_products if which == "tf32x3"
+            else lib.flash_attention_wgmma_products)
+    err = read(ctypes.addressof(flop), int(reset), dev)
+    if err:
+        raise RuntimeError(f"reading the {which} kernels' product counts "
+                           f"failed: {_describe(err)}")
+    return flop[0], flop[1]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -187,21 +230,41 @@ def kernel_head_dim(d: int) -> int:
     return -(-d // 16) * 16
 
 
+def _chunk_columns(d: int) -> int:
+    """Output columns a block of either route holds at kernel head_dim
+    ``d`` past 128 (the last block of a row may hold fewer): all of ``d``
+    up to 512; past it an equal share of at most 384, rounded up to a
+    multiple of 64."""
+    if d <= _WHOLE_D:
+        return d
+    share = -(-d // -(-d // _CHUNK_COLUMNS))
+    return -(-share // 64) * 64
+
+
 def out_chunks(d: int) -> int:
-    """The chunks either kernel splits the output's head_dim into at
-    kernel head_dim ``d``, one a block: 1 up to 128, 2 up to 256, and
-    ``ceil(d / 128)`` past it.  Up to 256 the split-TF32 kernel's two
-    chunks are equal halves; past 256 on that route, and past 128 on the
-    tensor-core one, every chunk holds 128 columns but the last, which
-    holds the rest (a multiple of 16)."""
-    return -(-d // _OUT_COLUMNS)
+    """The blocks either route gives a q tile at kernel head_dim ``d``,
+    each holding a chunk of the output's columns: 1 up to 512, where a
+    block holds them all; past it ``ceil(d / _chunk_columns(d))``, each
+    chunk but the last holding ``_chunk_columns(d)`` columns (320 or 384)
+    and computing q.k over the whole head_dim."""
+    return -(-d // _chunk_columns(d))
+
+
+def _block_q(which: str, d: int) -> int:
+    """q rows a block of route ``which`` holds at kernel head_dim ``d``:
+    the tensor-core kernel 128 up to 128 and 64 past it (one warpgroup's
+    rows); the split-TF32 kernel 64 up to 256 (its instantiations) and 32
+    past it (its wide kernel, so that q, K and V fit shared memory)."""
+    if which == "tensor_core":
+        return 128 if d <= 128 else 64
+    return 64 if d <= 256 else 32
 
 
 def _check_grid(which: str, b: int, hq: int, lq: int, d: int) -> None:
     """Raise ``ValueError`` where route ``which``'s grid cannot hold the
     call at kernel head_dim ``d``: each route's grid is 1-D over
-    (B * Hq) x q tiles of ``_BLOCK_Q[which]`` rows x ``out_chunks(d)``."""
-    if b * hq * -(-lq // _BLOCK_Q[which]) * out_chunks(d) > _INT_MAX:
+    (B * Hq) x q tiles of ``_block_q(which, d)`` rows x ``out_chunks(d)``."""
+    if b * hq * -(-lq // _block_q(which, d)) * out_chunks(d) > _INT_MAX:
         raise ValueError(f"q ({b}, {hq}, {lq}, D) exceeds the {which} "
                          f"kernel's grid")
 

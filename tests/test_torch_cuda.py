@@ -358,14 +358,16 @@ def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
 
 
 #: head_dims beyond 16/32/64/128: the kernels' instantiations at 48, 80,
-#: 96, 112 (zamba2-7b's) and, past 128, at 144, 176, 224, 240 and 256
-#: (two output chunks a q tile; on the tensor cores the wide kernel), past
-#: 256 at 272, 384, 512, 576 and 1,024 (the split-TF32 sliced kernel, the
-#: wide one, which reads q again with each slice of K past 512), and
-#: head_dims they reach by zero padding (1, 40, 57, 72, 100, 113, 127,
-#: 200, 257)
+#: 96, 112 (zamba2-7b's); past 128, one block a q tile holding every
+#: output column, at 144, 176, 208, 224, 240 and 256 (the tensor cores'
+#: wide kernel with one warpgroup, split TF32's instantiations) and 272,
+#: 384, 400 and 512 (each route's wide kernel, with owners of 128 columns:
+#: 272 and 400 with a last owner of 16 or 80), and past 512 in chunks of
+#: at most 384 columns at 528, 576 and 1,024 (q.k over the whole head_dim
+#: in rounds); and head_dims they reach by zero padding (1, 40, 57, 72,
+#: 100, 113, 127, 200, 257)
 ANY_D = [1, 40, 48, 57, 72, 80, 96, 100, 112, 113, 127, 144, 176, 200,
-         224, 240, 256, 257, 272, 384, 512, 576, 1024]
+         208, 224, 240, 256, 257, 272, 384, 400, 512, 528, 576, 1024]
 
 
 def any_head_dim_case(d: int, causal: bool, dtype, which: str) -> None:
@@ -389,7 +391,8 @@ def any_head_dim_case(d: int, causal: bool, dtype, which: str) -> None:
 @pytest.mark.parametrize("d", ANY_D)
 @pytest.mark.parametrize("causal", [True, False])
 def test_tf32x3_kernel_takes_any_head_dim(card, no_tf32, d, causal):
-    """f32 at every head_dim: the split-TF32 kernel (sliced past 256)."""
+    """f32 at every head_dim: the split-TF32 kernel (its wide kernel past
+    256)."""
     any_head_dim_case(d, causal, torch.float32, "tf32x3")
 
 
@@ -463,7 +466,7 @@ def test_smallest_head_dim_129_input_on_the_card(card, no_tf32):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [257, 512])
+@pytest.mark.parametrize("d", [257, 272, 400, 512, 528])
 def test_head_dim_past_256_runs_on_the_card(card, no_tf32, d, dtype):
     """Past head_dim 256, which the card refused until the kernels took
     every head_dim: (1, 1, 1, 257) q, k and v (the smallest such input)
@@ -486,6 +489,67 @@ def test_head_dim_past_256_runs_on_the_card(card, no_tf32, d, dtype):
                                    rtol=tol, atol=tol)
     assert fa_ops.counts[which] == before[which] + 2
     assert fa_ops.counts["flash_attention"] == before["flash_attention"] + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [144, 256, 400, 512, 528])
+def test_wide_kernels_give_bitwise_equal_outputs(card, no_tf32, d, dtype):
+    """Past head_dim 128 a q tile is one block that sums in a fixed order
+    (past 256 its owners add their partial scores through shared memory),
+    with no atomics on the output: two launches on the same inputs give the
+    same bits,
+    causal and not, under GQA 4/2 with Lq < Lk over several q and kv
+    tiles."""
+    rng = np.random.default_rng(d + 7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype) for s in ((2, 4, 150, d), (2, 2, 333, d),
+                                            (2, 2, 333, d)))
+    for causal in (True, False):
+        first = fa_ops.flash_attention(q, k, v, causal=causal)
+        second = fa_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_kernels_count_qk_once_a_kv_tile(card, no_tf32, d, dtype):
+    """Past head_dim 128 the kernels count the products they issue
+    (``ops.counted_products``): q.k once for each (q tile, kv tile) pair
+    the causal mask leaves, over all of D (three TF32 products each in
+    f32), and P.V in three bf16 parts of p (bf16) or three TF32 products
+    (f32), under GQA 4/2 at Lq = Lk = 300."""
+    which = fa_ops.route(dtype, d)
+    rng = np.random.default_rng(d + 11)
+    b, hq, hkv, length = 2, 4, 2, 300
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype) for s in ((b, hq, length, d),
+                                            (b, hkv, length, d),
+                                            (b, hkv, length, d)))
+    fa_ops.counted_products(which, reset=True)
+    fa_ops.flash_attention(q, k, v)
+    qk, pv = fa_ops.counted_products(which, reset=True)
+    bq = fa_ops._block_q(which, d)
+    bk = chip_smoke.FLASH_WIDE_KV_ROWS[which]
+    pairs = sum(min(-(-length // bk), (min(q0 + bq, length) - 1) // bk + 1)
+                for q0 in range(0, length, bq))
+    once = 2 * b * hq * pairs * bq * bk * d
+    if dtype == torch.float32:
+        assert (qk, pv) == (3 * once, 3 * once)
+    else:
+        assert (qk, pv) == (once, fa_ops.P_PARTS * once)
+    assert fa_ops.counted_products(which) == (0, 0)
+
+
+def test_kernels_blocks_a_q_tile_equal_out_chunks(card):
+    """Each library's grid gives a q tile as many blocks as
+    ``ops.out_chunks`` says, at every head_dim 16-1,024."""
+    for fn in (fa_ops.load("tensor_core").flash_attention_wgmma_chunks,
+               fa_ops.load("tf32x3").flash_attention_tf32x3_chunks):
+        assert [fn(d) for d in range(16, 1025, 16)] == [
+            fa_ops.out_chunks(d) for d in range(16, 1025, 16)]
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b",

@@ -133,9 +133,9 @@ def test_empty_kv_gives_zeros():
 
 #: head_dims the JAX kernel computes and the split-TF32 kernel reaches by
 #: zero padding (40, 72, 200) or by its own instantiation (80, 96, 112:
-#: zamba2-7b's; 144 and 256, past 128, in two output chunks), and past
-#: 256 by its sliced kernel (272: three chunks, the last of 16 columns;
-#: 384 and 512: three and four chunks of 128)
+#: zamba2-7b's; 144 and 256, one block a q tile holding every output
+#: column), and past 256 by its wide kernel (272: a last owner of 16
+#: columns; 384 and 512: three and four owners of 128)
 ANY_D = [40, 72, 80, 96, 112, 144, 200, 256, 272, 384, 512]
 
 
@@ -151,7 +151,8 @@ def test_any_head_dim_matches_jax_kernel(d, causal):
 
 
 def test_any_head_dim_1024_matches_jax_kernel():
-    """head_dim 1,024 (eight chunks and slices on either route), GQA 2/1
+    """head_dim 1,024 (three chunks of at most 384 output columns on
+    either route, each computing q.k over all 1,024 columns), GQA 2/1
     over a ragged 40 positions, in f32 within 1e-5."""
     q, k, v = qkv(np.random.default_rng(1024), 1, 2, 1, 40, 40, 1024)
     np.testing.assert_allclose(port(q, k, v), jax_kernel(q, k, v),
@@ -175,7 +176,7 @@ def test_bf16_head_dim_112_matches_jax_kernel(causal):
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_head_dim_past_128_matches_jax_kernel(d, causal):
     """bf16 past head_dim 128 (the tensor-core route's wide kernel on a
-    card: two chunks at 256, three at 272, the last of 16 columns), GQA
+    card: one warpgroup at 256, three at 272, the last of 16 columns), GQA
     4/2 over a ragged 130 positions, against the JAX kernel in bf16 within
     2e-2."""
     q, k, v = qkv(np.random.default_rng(d + 1), 1, 4, 2, 130, 130, d)
@@ -208,7 +209,7 @@ def test_smallest_head_dim_129_input_matches_jax_kernel():
                                     (256, 256), (257, 272), (512, 512)])
 def test_kernel_head_dim(d, want):
     """A card call runs the kernel at ``d`` rounded up to 16: the
-    split-TF32 kernel's instantiation there up to 256, its sliced kernel
+    split-TF32 kernel's instantiation there up to 256, its wide kernel
     past it (the tensor-core kernel's wide one past 128)."""
     assert ops.kernel_head_dim(d) == want
     assert want in ops.HEAD_DIMS or (want > ops.HEAD_DIMS[-1]
@@ -221,22 +222,23 @@ def test_kernel_head_dim_outside_the_kernels_raises(d):
         ops.kernel_head_dim(d)
 
 
-@pytest.mark.parametrize("d,chunks", [(16, 1), (128, 1), (144, 2),
-                                      (208, 2), (256, 2), (272, 3),
-                                      (384, 3), (400, 4), (512, 4),
-                                      (1024, 8)])
+@pytest.mark.parametrize("d,chunks", [(16, 1), (128, 1), (144, 1),
+                                      (208, 1), (256, 1), (272, 1),
+                                      (400, 1), (512, 1), (528, 2),
+                                      (784, 3), (1024, 3)])
 def test_out_chunks(d, chunks):
-    """Past head_dim 128 a block holds one chunk of the output's columns,
-    each at most 128 and a multiple of 16: up to 256 the split-TF32
-    kernel's two are equal halves; the tensor-core kernel's, and the
-    split-TF32 kernel's past 256, are 128 columns each but the last,
-    which holds the rest (16 at 144 and 272)."""
+    """Up to head_dim 512 a block of either route owns a q tile and every
+    output column; past it the columns are cut into chunks of at most 384,
+    a multiple of 64 each but the last, which holds the rest (a multiple of
+    16), one chunk a block."""
     assert ops.out_chunks(d) == chunks
-    if d <= 256:
-        width = d // chunks
-        assert width * chunks == d and width <= 128 and width % 8 == 0
-    last = d - 128 * (chunks - 1)
-    assert 0 < last <= 128 and last % 16 == 0
+    width = ops._chunk_columns(d)
+    if d <= 512:
+        assert width == d
+    else:
+        assert width <= 384 and width % 64 == 0
+    last = d - width * (chunks - 1)
+    assert 0 < last <= width and last % 16 == 0
 
 
 @pytest.mark.parametrize("d", [40, 72, 112, 200])
@@ -425,20 +427,34 @@ def test_grid_limits(which, b, hq, lq, fits):
             ops._check_grid(which, b, hq, lq, 128)
 
 
-@pytest.mark.parametrize("d,fits", [(128, True), (144, False),
-                                    (256, False), (512, False)])
+@pytest.mark.parametrize("d,fits", [(128, True), (144, True),
+                                    (512, True), (528, False),
+                                    (1024, False)])
 def test_grid_limits_count_the_output_chunks(d, fits):
-    """Past head_dim 128 either route's grid holds two or more blocks a q
-    tile (``out_chunks``): 2^30 q tiles fit one a tile, not two; 2^28
-    fit four, at head_dim 512."""
+    """Either route's grid holds ``out_chunks`` blocks a q tile of
+    ``_block_q`` rows: 2^30 q tiles fit one block a tile (every head_dim
+    to 512), not two or three (528: two chunks; 1,024: three); 2^28 fit
+    three, at head_dim 1,024."""
     for which in ops.ROUTES:
-        args = (which, 2 ** 16, 2 ** 8, ops._BLOCK_Q[which] * 2 ** 6, d)
+        args = (which, 2 ** 16, 2 ** 8, ops._block_q(which, d) * 2 ** 6, d)
         if fits:
             ops._check_grid(*args)
         else:
             with pytest.raises(ValueError, match="grid"):
                 ops._check_grid(*args)
-    ops._check_grid("tensor_core", 2 ** 16, 2 ** 6, 128 * 2 ** 6, 512)
+    ops._check_grid("tensor_core", 2 ** 16, 2 ** 6, 64 * 2 ** 6, 1024)
+
+
+@pytest.mark.parametrize("which,d,rows", [
+    ("tensor_core", 128, 128), ("tensor_core", 144, 64),
+    ("tensor_core", 1024, 64), ("tf32x3", 128, 64), ("tf32x3", 256, 64),
+    ("tf32x3", 272, 32), ("tf32x3", 1024, 32)])
+def test_block_q_follows_each_route_past_128(which, d, rows):
+    """q rows a block holds: the tensor-core kernel 128 to head_dim 128,
+    then one warpgroup's 64; the split-TF32 kernel 64 to 256, then 32 (its
+    wide kernel's q, K and V tiles of every head_dim column then fit
+    shared memory)."""
+    assert ops._block_q(which, d) == rows
 
 
 def tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
@@ -519,9 +535,11 @@ def test_flash_rounding_tool_finds_its_lines_in_the_kernel():
 
 
 def test_flash_ab_reads_one_instantiations_sass():
-    """``tools/flash_ab.py`` compares two libraries' instantiations of the
-    tensor-core kernel instruction by instruction: it takes the listing
-    of the (head_dim, 3 parts) one only, without addresses or encodings."""
+    """``tools/flash_ab.py`` compares two libraries' instantiations of
+    either flash kernel instruction by instruction: it takes the listing
+    of one instantiation only (the tensor-core kernel's (head_dim, 3
+    parts), the split-TF32 kernel's (type, head_dim, copy width)), without
+    addresses or encodings."""
     from tools import flash_ab
 
     def function(d, parts, body):
@@ -537,3 +555,19 @@ def test_flash_ab_reads_one_instantiations_sass():
                                                 "HGMMA.64x128x16"]
     assert flash_ab.instructions(sass, 112) == ["BRA 0x40"]
     assert flash_ab.instructions(sass, 64) == []
+    # the split-TF32 library: float32 with 16- and 4-byte copies, and bf16,
+    # each apart from the others and from the wide kernel
+    names = {"f32, 16-byte copies": "IfLi128ELb1EEEvPKT_",
+             "f32, 4-byte copies": "IfLi128ELb0EEEvPKT_",
+             "bf16": "I13__nv_bfloat16Li128ELb0EEEvPKT_"}
+    sass = "\tcode for sm_90a\n" + "".join(
+        f"\t\tFunction : _ZN_flash_attention_tf32x3_kernel{tail}\n"
+        f"        /*0000*/   HMMA.1688.F32.TF32 R{i} ;   /* 0x0 */\n"
+        for i, tail in enumerate(names.values())) + (
+        "\t\tFunction : _ZN_flash_attention_tf32x3_wide_kernelILb1EEEv\n"
+        "        /*0000*/   EXIT ;   /* 0x0 */\n")
+    for i, label in enumerate(names):
+        assert flash_ab.instructions(sass, 128, "tf32x3", label) == [
+            f"HMMA.1688.F32.TF32 R{i}"]
+    assert flash_ab.instructions(sass, 112, "tf32x3", "bf16") == []
+    assert set(flash_ab.instantiations("tf32x3", 128)) == set(names)

@@ -1,22 +1,24 @@
-"""The tensor-core flash kernel of this checkout against another's, on a card.
+"""Both flash kernels of this checkout against another's, on a card.
 
-Builds ``flash_attention_wgmma.cu`` from this checkout and from the
-checkout at ``--other`` (for example a parent commit unpacked by ``git
-archive`` into a directory that ``.gitignore`` lists), then, at the
-serving prefill shape (B 4, H 32, L 2,048, causal, bf16, on the model's
-(B, S, H, D) layout viewed as (B, H, S, D)), for each head_dim:
+Builds ``flash_attention_wgmma.cu`` and ``flash_attention_tf32x3.cu`` from
+this checkout and from the checkout at ``--other`` (for example a parent
+commit unpacked by ``git archive`` into a directory that ``.gitignore``
+lists), then:
 
-* times each library that is instantiated there, in turns (this, other,
-  other, this; each a median of 20 one-launch CUDA-event timings, as
-  ``chip_smoke.py`` times), through this checkout's wrapper;
-* says whether the two instantiations (3 bf16 parts of p) are the same
-  SASS, instruction for instruction;
-* at a head_dim the other library lacks, times this checkout's
-  split-TF32 kernel in bf16 there in its place, in the same turns.
+* for every head_dim up to 128 both copies of a library instantiate (16
+  to 128 in steps of 16, each library's every instantiation there), says
+  whether each is the same SASS, instruction for instruction, and counts
+  those that differ (the kernels past 128 are compared by time only);
+* at the serving prefill shape (B 4, H 32, L 2,048, causal, on the
+  model's (B, S, H, D) layout viewed as (B, H, S, D)), for each head_dim
+  of ``--head-dims``, in bf16 (the tensor-core route) and in f32 (the
+  split-TF32 route), times this library and the other in turns (this,
+  other, other, this; each a median of 20 one-launch CUDA-event timings,
+  as ``chip_smoke.py`` times), through this checkout's wrapper.
 
 Run from the repo root on a card:
     git archive HEAD~1 | tar -x -C build/parent
-    python3 tools/flash_ab.py --other build/parent [--head-dims 64,112,128]
+    python3 tools/flash_ab.py --other build/parent [--head-dims 64,128,256,512]
 """
 
 from __future__ import annotations
@@ -31,17 +33,33 @@ from unittest import mock
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu"
+CSRC = "src/repro_torch/kernels/flash_attention/csrc"
+#: the instantiated head_dims whose SASS is compared, by library
+SASS_HEAD_DIMS = {"tensor_core": tuple(range(16, 129, 16)),
+                  "tf32x3": tuple(range(16, 129, 16))}
 
 
-def instructions(sass: str, d: int) -> list[str]:
-    """The instructions of the head_dim ``d``, 3-part instantiation in a
-    library's ``cuobjdump -sass`` listing, without addresses or
-    encodings."""
+def instantiations(which: str, d: int) -> dict[str, str]:
+    """The instantiations of route ``which``'s library at head_dim ``d``:
+    a label for each and the part of its mangled name that tells it from
+    the others."""
+    if which == "tensor_core":
+        return {"bf16, 3 parts": f"flash_attention_wgmma_kernelILi{d}ELi3E"}
+    name = "flash_attention_tf32x3_kernelI"
+    return {"f32, 16-byte copies": f"{name}fLi{d}ELb1E",
+            "f32, 4-byte copies": f"{name}fLi{d}ELb0E",
+            "bf16": f"{name}13__nv_bfloat16Li{d}ELb0E"}
+
+
+def instructions(sass: str, d: int, which: str = "tensor_core",
+                 label: str = "bf16, 3 parts") -> list[str]:
+    """The instructions of one instantiation (route ``which``, head_dim
+    ``d``, ``label`` of :func:`instantiations`) in a library's ``cuobjdump
+    -sass`` listing, without addresses or encodings; empty where the
+    library lacks it."""
     import chip_smoke
 
-    body = chip_smoke.function_sass(
-        sass, f"flash_attention_wgmma_kernelILi{d}ELi3E")
+    body = chip_smoke.function_sass(sass, instantiations(which, d)[label])
     return [op.strip() for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);",
                                             body)]
 
@@ -50,7 +68,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, required=True,
                     help="root of the checkout to compare with")
-    ap.add_argument("--head-dims", default="64,112,128")
+    ap.add_argument("--head-dims", default="64,112,128,256,512")
     args = ap.parse_args(argv)
 
     import torch
@@ -63,45 +81,66 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    name, _, signatures = ops._LIBRARIES["tensor_core"]
-    libs = {"this": ops.load("tensor_core"),
-            "other": _build.load_library(f"{name}_other",
-                                         (args.other / SOURCE,), signatures)}
-    sass = {label: chip_smoke.sass_listing(lib._name)
-            for label, lib in libs.items()}
+    libs = {}
+    for which, (name, sources, signatures) in ops._LIBRARIES.items():
+        # the other checkout's library may lack this one's other exports
+        launch = {fn: types for fn, types in signatures.items()
+                  if fn.endswith("_launch")}
+        libs[which] = {
+            "this": ops.load(which),
+            "other": _build.load_library(
+                f"{name}_other", (args.other / CSRC / sources[0].name,),
+                launch)}
+    differ = 0
+    for which, pair in libs.items():
+        sass = {label: chip_smoke.sass_listing(lib._name)
+                for label, lib in pair.items()}
+        for d in SASS_HEAD_DIMS[which]:
+            for label in instantiations(which, d):
+                ours, theirs = (instructions(sass[side], d, which, label)
+                                for side in pair)
+                if not ours or not theirs:
+                    if ours or theirs:
+                        print(f"{which} head_dim {d} ({label}): only in "
+                              f"{'this' if ours else 'the other'} library")
+                    continue
+                same = ours == theirs
+                differ += not same
+                print(f"{which} head_dim {d} ({label}): SASS the same: "
+                      f"{same} ({len(ours)} and {len(theirs)} instructions)")
+                for i, (a, b) in enumerate(zip(ours, theirs)):
+                    if a != b:
+                        print(f"  first difference, instruction {i}: "
+                              f"{a!r} against {b!r}")
+                        break
     b, h, length = chip_smoke.SERVE_BATCH, 32, chip_smoke.SERVE_PROMPT
     for d in (int(x) for x in args.head_dims.split(",")):
-        rng = np.random.default_rng(1)
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, length, h, d))
-                                    .astype(np.float32))
-                   .to("cuda", torch.bfloat16).transpose(1, 2)
-                   for _ in range(3))
-        variants = {}
-        for label, lib in libs.items():
-            if lib.flash_attention_wgmma_smem_bytes(d):
-                variants[label] = mock.patch.object(
-                    ops, "load", lambda which="tensor_core", lib=lib: lib)
-            else:
-                variants["tf32x3"] = mock.patch.object(
-                    ops, "route", lambda dtype, head_dim: "tf32x3")
-        times = {label: [] for label in variants}
-        for label in [*variants, *reversed(variants)]:
-            with variants[label]:
-                times[label].append(chip_smoke.time_ms(
-                    torch, lambda: ops.flash_attention(q, k, v)))
-        same = ""
-        if "other" in variants:
-            ours, theirs = (instructions(sass[label], d) for label in libs)
-            same = (f"; SASS the same: {ours == theirs} ({len(ours)} and "
-                    f"{len(theirs)} instructions)")
-        print(f"head_dim {d}, B {b} H {h} L {length} bf16 causal: " + ", ".join(
-            f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms"
-            for label, ts in times.items()) + same + f" [{smi}]")
-        del q, k, v
+        for dtype in (torch.bfloat16, torch.float32):
+            which = ops.route(dtype, d)
+            rng = np.random.default_rng(1)
+            q, k, v = (torch.from_numpy(rng.standard_normal((b, length, h, d))
+                                        .astype(np.float32))
+                       .to("cuda", dtype).transpose(1, 2) for _ in range(3))
+            times = {label: [] for label in libs[which]}
+            for label in [*times, *reversed(times)]:
+                lib = libs[which][label]
+                with mock.patch.object(ops, "load",
+                                       lambda which=which, lib=lib: lib):
+                    times[label].append(chip_smoke.time_ms(
+                        torch, lambda: ops.flash_attention(q, k, v)))
+            turns = ", ".join(
+                f"{label} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+                for label, ts in times.items())
+            print(f"head_dim {d}, B {b} H {h} L {length} "
+                  f"{str(dtype).split('.')[-1]} causal ({which}): {turns} "
+                  f"[{smi}]")
+            del q, k, v
+    print(f"instantiations to head_dim 128 whose SASS differs: {differ}")
     return 0
 
 
