@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero and none is caught:
 
 1. Environment: torch, CUDA, ``nvcc``, the card's name and power limit,
    and the time to build the kernels from ``src/repro_torch`` (one
-   ``nvcc`` per source, started together), with ``ptxas``'s registers,
-   shared memory and spills (a spill in any kernel fails the phase); the
+   ``nvcc`` per source, all started together; split TF32's optimizes in
+   threads, ``ops._LIBRARIES``) and each library's, with ``ptxas``'s registers, shared
+   memory and spills (a spill in any kernel, or a ``wgmma`` serialized,
+   C7520, fails the phase); the
    tensor-core flash kernel's shared memory a block at each head_dim it is
    instantiated for and at head_dims past 128 (its wide kernel); the count
    of ``HGMMA`` (warpgroup tensor-core) instructions in the bf16 flash
@@ -80,8 +82,7 @@ Phases, in order; any failure exits non-zero and none is caught:
    of outputs the tensor-core kernel rounds unlike the plain version, and
    its time and share with p in 3, 2 and 1 bf16 parts (``ops.P_PARTS``),
    and the wide kernel's share held below 1.25x the three parts' share
-   past head_dim 256 (tile sums) and below the two parts' share up to it
-   (P.V chained into O);
+   at every head_dim past 128 (each kv tile's P.V summed from zero);
    the tensor-core kernel in bf16 at zamba2-7b's attention shape (head_dim
    112, phase 15's route) and past 128 at 256 and 512 (its wide kernel);
    the split-TF32 kernel in f32 at head_dim 512 (its wide kernel).  Past
@@ -267,10 +268,6 @@ PEAK_BF16_FLOP_PER_S = 989e12
 #: TF32 products for each f32 one
 PEAK_TF32_FLOP_PER_S = 495e12
 TF32_SPLIT_PRODUCTS = 3
-#: kv rows a tile of each route's kernels past head_dim 128 (kWideRows in
-#: flash_attention_wgmma.cu; Tile's kBlockK and kWideBlockK in
-#: flash_attention_tf32x3.cu)
-FLASH_WIDE_KV_ROWS = {"tensor_core": 64, "tf32x3": 32}
 #: the tensor cores' wide kernel's instantiations: (owners, 64-column
 #: regions an owner, q.k in rounds)
 WIDE_INSTANTIATIONS = ((1, 3, 0), (1, 4, 0), (3, 2, 0), (4, 2, 0), (3, 2, 1))
@@ -1380,13 +1377,12 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
         del plain
         if rounding is not None and d > 128:
             # the wide kernel's rounding against the D 128 kernel's in this
-            # run (the prefill shape comes first): past 256 a tile's P.V is
-            # summed from zero, as at D 128, within 1.25x of its share with
-            # three parts; up to 256 it is chained into O (a warpgroup's
-            # registers hold no tile sum), below its share with p in two
-            # parts, which failed the bf16 logits gates (PERF.md, Findings)
+            # run (the prefill shape comes first): a kv tile's P.V is summed
+            # from zero and added to O in f32, as at D 128, so within 1.25x
+            # of its share with three parts (chained into O, it rounded
+            # 3.6x as many at D 256; PERF.md, Findings)
             shares = timing["tensor_core"]["p_parts_rounding_share"]
-            limit = 1.25 * shares[3] if d > 256 else shares[2]
+            limit = 1.25 * shares[3]
             print(f"flash_attention ({which}) at D {d}: {rounding:.5f} of "
                   f"its bf16 outputs round unlike the plain version's, "
                   f"limit {limit:.5f} [{card}]")
@@ -1439,9 +1435,8 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
             fa_ops.counted_products(which, reset=True)
             fa_ops.flash_attention(q, k, v)
             counted = fa_ops.counted_products(which, reset=True)
-            bq, bk = fa_ops._block_q(which, d), FLASH_WIDE_KV_ROWS[which]
-            pairs = sum(min(-(-l // bk), (min(q0 + bq, l) - 1) // bk + 1)
-                        for q0 in range(0, l, bq))
+            bq, bk = fa_ops._block_q(which, d), fa_ops._block_kv(which, d)
+            pairs = fa_ops._tile_pairs(which, d, l, l)
             qk_times = counted[0] / (2 * b * h * pairs * bq * bk * d
                                      * products)
             print(f"flash_attention ({which}) at D {d} "
@@ -3791,7 +3786,11 @@ def main(argv=None) -> int:
                 print("  ptxas:", line.strip())
         if spilled_bytes(log or ""):
             raise AssertionError(f"{name}: ptxas spilled registers")
-    print(f"kernel build + load, {len(libs)} libraries: {build_s:.2f} s")
+        if "C7520" in (log or ""):
+            raise AssertionError(f"{name}: ptxas serialized wgmma (C7520)")
+    print(f"kernel build + load, {len(libs)} libraries at once: "
+          f"{build_s:.2f} s; each library's build: " + ", ".join(
+              f"{lib} {s:.2f} s" for lib, s in _build.build_seconds.items()))
     tc = libs["tensor_core"]
     for d in (*fa_ops.TENSOR_CORE_HEAD_DIMS, *WIDE_HEAD_DIMS):
         print(f"tensor-core flash kernel at head_dim {d}: "

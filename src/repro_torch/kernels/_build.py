@@ -18,11 +18,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Sequence
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_logs", "load_library",
-           "nvcc_path"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_logs", "build_seconds",
+           "load_library", "nvcc_path"]
 
 #: repo root / build / kernels (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -38,6 +39,8 @@ NVCC_FLAGS = (
 
 #: name -> compiler output of the build made in this process
 build_logs: dict[str, str] = {}
+#: name -> seconds that build took
+build_seconds: dict[str, float] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _locks: dict[str, threading.Lock] = {}   # one per library: builds of
@@ -57,26 +60,29 @@ def nvcc_path() -> str:
 
 
 def load_library(name: str, sources: Sequence[Path],
-                 signatures: dict[str, list]) -> ctypes.CDLL:
+                 signatures: dict[str, list],
+                 flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (once per source digest) and load ``lib<name>``.
 
     ``signatures`` maps each exported C function to its ctypes argument
-    types; every function returns an ``int`` CUDA error code.  Libraries
-    of different names build in parallel when called from threads."""
+    types; every function returns an ``int`` CUDA error code.  ``flags``
+    are the library's own, added to :data:`NVCC_FLAGS`.  Libraries of
+    different names build in parallel when called from threads."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
         for src in sources:
             h.update(Path(src).read_bytes())
         so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+            cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
                    *(str(s) for s in sources)]
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   check=False)
@@ -85,6 +91,7 @@ def load_library(name: str, sources: Sequence[Path],
                     f"nvcc failed to build {name} ({proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}")
             build_logs[name] = proc.stdout + proc.stderr
+            build_seconds[name] = time.perf_counter() - t0
             os.replace(tmp, so)   # atomic: a concurrent builder sees all or nothing
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in signatures.items():

@@ -95,16 +95,18 @@
 //    wgmma.m64n64k16 a 64-column region, 3 or 4 regions, both operands in
 //    shared memory), the softmax in registers, p's three bf16 parts in
 //    registers as P.V's A operand and O in 3 or 4 regions (up to 128 f32
-//    registers a thread), as up to D 128, but P.V added to O after O is
-//    scaled by alpha: O and p leave no registers for a tile sum (with one
-//    of 64 or of 32 columns, or with p's parts in shared memory, ptxas
-//    spilled).  So these head_dims round about three times as many outputs
-//    unlike f32 attention as the tile sums do (0.00201 of them at D 256,
-//    against 0.00060 at D 512; PERF.md, Findings).  q, one K slot
-//    and one V slot take 98 KB at D 256, so two blocks share an SM and each
-//    runs while the other waits.  At D 256 the products issued are 2x the
-//    function's (5.5e11 FLOP), not 2.5x as with 128-column chunks on the
-//    grid.
+//    registers a thread), as up to D 128.  A tile's P.V is summed from zero
+//    a 64-column region at a time and added to O in f32 (pv_region_into),
+//    in one set of 32 registers that every region reuses: O, p's parts and
+//    that one tile sum take 208 of the 255 registers a thread has at two
+//    blocks an SM (ptxas: 237 used at D 256, 203 at D 192, no spill).  With
+//    a tile sum zeroed in each region ptxas held two of them and spilled
+//    (272 bytes at D 256), and with P.V chained into O across the tiles the
+//    kernel rounded 3.6 times as many outputs unlike f32 attention (0.00201
+//    of them at D 256; PERF.md, Findings).  q, one K slot and one V slot
+//    take 98 KB at D 256, so two blocks share an SM and each runs while the
+//    other waits.  At D 256 the products issued are 2x the function's
+//    (5.5e11 FLOP), not 2.5x as with 128-column chunks on the grid.
 //  * Past D 256 O no longer fits one warpgroup's registers: one warpgroup
 //    (an "owner") for each 128 output columns, 3 up to D 384, 4 to 512.
 //    Owner w computes the partial S of the same 128 head_dim columns, q[:,
@@ -159,7 +161,11 @@
 // up to D 256, two owners of 128 columns (their partial S's, a barrier a
 // tile and their lockstep cost more than QK^T's half), with p's parts
 // through shared memory or in registers, and with QK^T of tile j + 1
-// issued before tile j's softmax to run beside it.
+// issued before tile j's softmax to run beside it; kv tiles of 32 rows at
+// one owner (S and p's parts in half the registers, but twice the waits,
+// row reductions and rescales a kv row, and q.k in m64n32k16 products);
+// and a tile's P.V in halves of 32 columns with two sums in flight, the
+// next half's products running while the last joins O.
 // A wait on an mbarrier that has not completed after about ten seconds
 // traps, so a fault in the pipeline ends the launch with an error instead
 // of hanging the card.
@@ -762,15 +768,18 @@ __device__ __forceinline__ void pv_region_ss(float (&o)[32], uint32_t p_parts,
 }
 
 // O = alpha O + P V over one 64-column region with P's bf16 parts in
-// registers (as pv_region), the products added to O after O is scaled by
-// alpha: the one owner's registers hold no tile sum beside O and p.
+// registers, as pv_region: the tile's products summed from zero, smallest
+// part first, into t, and t added to O in f32.  t is the caller's, the
+// same registers region after region: the accumulator operands of the
+// first product are read (its scale_d = 0 ignores them), so the products
+// of region r + 1 wait for region r's sum to join O, and ptxas holds one
+// tile sum beside O and p.  (With a sum of its own zeroed in each region,
+// as pv_region's, ptxas held two and spilled: 272 bytes at D 256.)
 // kSteps x kParts products.
 template <int kParts, int kSteps>
-__device__ __forceinline__ void pv_region_chained(
-    float (&o)[32], const uint32_t (&pp)[kSteps][4][kParts],
+__device__ __forceinline__ void pv_region_into(
+    float (&o)[32], float (&t)[32], const uint32_t (&pp)[kSteps][4][kParts],
     const float (&alpha)[2], uint32_t v_region) {
-#pragma unroll
-  for (int e = 0; e < 32; ++e) o[e] *= alpha[(e / 2) % 2];
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
@@ -779,11 +788,13 @@ __device__ __forceinline__ void pv_region_chained(
     for (int part = kParts - 1; part >= 0; --part) {
       const uint32_t a[4] = {pp[kk][0][part], pp[kk][1][part],
                              pp[kk][2][part], pp[kk][3][part]};
-      wgmma_m64nNk16_rs<64>(o, a, dv, 1);
+      wgmma_m64nNk16_rs<64>(t, a, dv, kk > 0 || part < kParts - 1);
     }
   }
   wgmma_commit();
   wgmma_wait_all();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] = fmaf(o[e], alpha[(e / 2) % 2], t[e]);
 }
 
 // FLOP of the products the wide kernel has issued since the last reset,
@@ -1048,11 +1059,16 @@ flash_attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int e = 0; e < 4; ++e)
           split_bf16<kParts>(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1],
                              pp[kk][e]);
+      // O = alpha O + P V a region at a time, the tile's products summed
+      // from zero in t and added to O in f32
       const uint32_t v = v_mine(j);
+      float t[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) t[e] = 0.f;
 #pragma unroll
       for (int r = 0; r < kOR; ++r)
-        pv_region_chained<kParts, kSteps>(o[r], pp, alpha,
-                                          v + r * kWideRegion);
+        pv_region_into<kParts, kSteps>(o[r], t, pp, alpha,
+                                       v + r * kWideRegion);
       free_v(j);
     }
   } else {

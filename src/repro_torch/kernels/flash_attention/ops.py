@@ -42,10 +42,9 @@ head_dim, and only the grid can refuse a call (:func:`_check_grid`).
 Each library keeps its own copy of that rule and reports its count of
 blocks a q tile (``flash_attention_*_chunks``), which a card test holds
 to :func:`out_chunks`.  The kernels past 128 count the products they
-issue (:func:`counted_products`).  On the tensor
-cores a tile's P.V is summed from zero and added to O in f32 past 256;
-up to 256 it is added to O as it is issued, which a warpgroup's registers
-force and which rounds more of the outputs unlike f32 attention.
+issue (:func:`counted_products`).  On the tensor cores a kv tile's P.V is
+summed from zero and added to O in f32 at every head_dim, as the
+reference adds each tile's f32 product into its accumulator.
 
 On either route a head_dim that is not a multiple of 16 runs on copies of
 q, k and v zero-padded to the next one (:func:`kernel_head_dim`): zero
@@ -91,7 +90,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: q, k, v and out's (batch, head, position) strides, device, stream
 _TAIL = [*[_L] * 12, _I, _P]
-#: route -> (library, sources, its C functions' argument types)
+#: route -> (library, sources, its C functions' argument types, its own
+#: nvcc flags): split TF32's front end optimizes in threads (its 16 float32
+#: kernels at head_dim 144-256 hold all of O; built whole, one thread takes
+#: a minute); the tensor-core library builds without the flag, which
+#: changes its SASS
 _LIBRARIES = {
     "tf32x3": ("flash_attention_tf32x3",
                (_CSRC / "flash_attention_tf32x3.cu",), {
@@ -102,7 +105,7 @@ _LIBRARIES = {
         # flop[2], reset, device: the products counted past head_dim 128
         "flash_attention_tf32x3_products": [_P, _I, _I],
         # D -> blocks a q tile
-        "flash_attention_tf32x3_chunks": [_I]}),
+        "flash_attention_tf32x3_chunks": [_I]}, ("--split-compile=0",)),
     "tensor_core": ("flash_attention_wgmma",
                     (_CSRC / "flash_attention_wgmma.cu",), {
         # q, k, v, out, B, Hq, Hkv, Lq, Lk, D, p_parts, causal, sm_scale, ...
@@ -111,7 +114,7 @@ _LIBRARIES = {
         # D -> dynamic shared memory of a block, in bytes
         "flash_attention_wgmma_smem_bytes": [_I],
         "flash_attention_wgmma_products": [_P, _I, _I],
-        "flash_attention_wgmma_chunks": [_I]}),
+        "flash_attention_wgmma_chunks": [_I]}, ()),
 }
 ROUTES = tuple(_LIBRARIES)
 #: head_dims the split-TF32 kernel is instantiated for (its QK^T reads 16
@@ -150,8 +153,8 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 def load(which: str = "tensor_core") -> ctypes.CDLL:
     """Build (at first use) and load the library of route ``which``."""
-    name, sources, signatures = _LIBRARIES[which]
-    return _build.load_library(name, sources, signatures)
+    name, sources, signatures, flags = _LIBRARIES[which]
+    return _build.load_library(name, sources, signatures, flags)
 
 
 def counted_products(which: str, device: Optional[int] = None,
@@ -258,6 +261,30 @@ def _block_q(which: str, d: int) -> int:
     if which == "tensor_core":
         return 128 if d <= 128 else 64
     return 64 if d <= 256 else 32
+
+
+def _block_kv(which: str, d: int) -> int:
+    """kv rows a tile of route ``which``'s kernel at kernel head_dim ``d``:
+    the tensor-core kernel 128 up to 128 (``kBlock``) and 64 past it
+    (``kWideRows``); the split-TF32 kernel 64 up to 64, then 32
+    (``Tile::kBlockK``, ``kWideBlockK``)."""
+    if which == "tensor_core":
+        return 128 if d <= 128 else 64
+    return 64 if d <= 64 else 32
+
+
+def _tile_pairs(which: str, d: int, lq: int, lk: int) -> int:
+    """The (q tile, kv tile) pairs route ``which``'s kernel runs for one
+    (batch, head) of a causal call at kernel head_dim ``d``: each q tile
+    of ``_block_q`` rows takes the kv tiles of ``_block_kv`` rows up to
+    the last one its last row sees (the mask is aligned to the end of the
+    kv sequence)."""
+    bq, bk = _block_q(which, d), _block_kv(which, d)
+    pairs = 0
+    for q0 in range(0, lq, bq):
+        last = min(q0 + bq, lq) - 1 + lk - lq
+        pairs += 0 if last < 0 else min(-(-lk // bk), last // bk + 1)
+    return pairs
 
 
 def _check_grid(which: str, b: int, hq: int, lq: int, d: int) -> None:

@@ -457,6 +457,43 @@ def test_block_q_follows_each_route_past_128(which, d, rows):
     assert ops._block_q(which, d) == rows
 
 
+
+@pytest.mark.parametrize("which,d,rows", [
+    ("tensor_core", 128, 128), ("tensor_core", 144, 64),
+    ("tensor_core", 256, 64), ("tensor_core", 512, 64),
+    ("tf32x3", 64, 64), ("tf32x3", 80, 32), ("tf32x3", 256, 32),
+    ("tf32x3", 512, 32)])
+def test_block_kv_follows_each_route(which, d, rows):
+    """kv rows a tile: the tensor-core kernel 128 to head_dim 128, then its
+    wide kernel's 64; the split-TF32 kernel 64 to 64, then 32."""
+    assert ops._block_kv(which, d) == rows
+
+
+@pytest.mark.parametrize("which", ["tensor_core", "tf32x3"])
+@pytest.mark.parametrize("d", [144, 192, 256, 512])
+def test_tile_pairs_count_each_kernels_tiles(which, d):
+    """The (q tile, kv tile) pairs a causal call runs for one (batch,
+    head), which chip_smoke.py's phase 8 and the card's count test divide
+    the counted q.k by: every pair whose kv tile starts at or before the
+    last column its q tile's last row sees (end-aligned), for Lq = Lk,
+    Lq < Lk, Lq > Lk and a ragged last tile."""
+    bq, bk = ops._block_q(which, d), ops._block_kv(which, d)
+    for lq, lk in ((2048, 2048), (300, 300), (150, 333), (333, 150),
+                   (1, 100), (100, 1)):
+        want = sum(1 for q0 in range(0, lq, bq) for k0 in range(0, lk, bk)
+                   if k0 <= min(q0 + bq, lq) - 1 + lk - lq)
+        assert ops._tile_pairs(which, d, lq, lk) == want
+    # at the prefill shape (B 4, H 32, L 2,048) the q.k the kernels
+    # counted on the card (PERF.md, Findings; split TF32 three TF32
+    # products of it): 1.4173e11 FLOP at D 256, 2.8347e11 on the tensor
+    # cores and 2.7917e11 in split TF32 (32-row q tiles) at D 512
+    counted = {256: 141733920768,
+               512: 283467841536 if which == "tensor_core" else 279172874240}
+    if d in counted:
+        assert 2 * 4 * 32 * ops._tile_pairs(which, d, 2048, 2048) * bq * bk \
+            * d == counted[d]
+
+
 def tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
     """f32 to TF32 (10 mantissa bits) on the int32 view, as the kernel
     does it: rounded to nearest, ties away from zero (``cvt.rna.tf32``'s

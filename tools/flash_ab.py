@@ -8,7 +8,9 @@ lists), then:
 * for every head_dim up to 128 both copies of a library instantiate (16
   to 128 in steps of 16, each library's every instantiation there), says
   whether each is the same SASS, instruction for instruction, and counts
-  those that differ (the kernels past 128 are compared by time only);
+  those that differ; it compares the tensor cores' wide kernel of three
+  and four owners (head_dim 257 and up) the same way, apart (the rest
+  past 128 by time only);
 * at the serving prefill shape (B 4, H 32, L 2,048, causal, on the
   model's (B, S, H, D) layout viewed as (B, H, S, D)), for each head_dim
   of ``--head-dims``, in bf16 (the tensor-core route) and in f32 (the
@@ -37,6 +39,9 @@ CSRC = "src/repro_torch/kernels/flash_attention/csrc"
 #: the instantiated head_dims whose SASS is compared, by library
 SASS_HEAD_DIMS = {"tensor_core": tuple(range(16, 129, 16)),
                   "tf32x3": tuple(range(16, 129, 16))}
+#: the tensor cores' wide instantiations of several owners, whose SASS is
+#: compared too: (owners, 64-column regions an owner, q.k in rounds)
+SASS_WIDE = ((3, 2, 0), (4, 2, 0), (3, 2, 1))
 
 
 def instantiations(which: str, d: int) -> dict[str, str]:
@@ -57,9 +62,16 @@ def instructions(sass: str, d: int, which: str = "tensor_core",
     ``d``, ``label`` of :func:`instantiations`) in a library's ``cuobjdump
     -sass`` listing, without addresses or encodings; empty where the
     library lacks it."""
+    return listed(sass, instantiations(which, d)[label])
+
+
+def listed(sass: str, function: str) -> list[str]:
+    """The instructions of the functions whose (mangled) name holds
+    ``function`` in a ``cuobjdump -sass`` listing, without addresses or
+    encodings."""
     import chip_smoke
 
-    body = chip_smoke.function_sass(sass, instantiations(which, d)[label])
+    body = chip_smoke.function_sass(sass, function)
     return [op.strip() for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);",
                                             body)]
 
@@ -87,16 +99,17 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     libs = {}
-    for which, (name, sources, signatures) in ops._LIBRARIES.items():
-        # the other checkout's library may lack this one's other exports
+    for which, (name, sources, signatures, flags) in ops._LIBRARIES.items():
+        # the other checkout's library may lack this one's other exports;
+        # both copies build with this checkout's flags
         launch = {fn: types for fn, types in signatures.items()
                   if fn.endswith("_launch")}
         libs[which] = {
             "this": ops.load(which),
             "other": _build.load_library(
                 f"{name}_other", (args.other / CSRC / sources[0].name,),
-                launch)}
-    differ = 0
+                launch, flags)}
+    differ = wide_differ = 0
     for which, pair in libs.items():
         sass = {label: chip_smoke.sass_listing(lib._name)
                 for label, lib in pair.items()}
@@ -118,6 +131,16 @@ def main(argv=None) -> int:
                         print(f"  first difference, instruction {i}: "
                               f"{a!r} against {b!r}")
                         break
+        if which == "tensor_core":
+            for owners, regions, multi in SASS_WIDE:
+                name = (f"flash_attention_wgmma_wide_kernelILi{ops.P_PARTS}"
+                        f"ELi{owners}ELi{regions}ELb{multi}E")
+                ours, theirs = (listed(sass[side], name) for side in pair)
+                same = ours == theirs
+                wide_differ += not same
+                print(f"wide kernel, {owners} owners of {regions} regions"
+                      f"{' in rounds' if multi else ''}: SASS the same: "
+                      f"{same} ({len(ours)} and {len(theirs)} instructions)")
     b, h, length = chip_smoke.SERVE_BATCH, 32, chip_smoke.SERVE_PROMPT
     for d in (int(x) for x in args.head_dims.split(",")):
         for dtype in (torch.bfloat16, torch.float32):
@@ -140,6 +163,8 @@ def main(argv=None) -> int:
                   f"{str(dtype).split('.')[-1]} causal ({which}): {turns} "
                   f"[{smi}]")
             del q, k, v
+    print(f"wide instantiations of several owners whose SASS differs: "
+          f"{wide_differ}")
     print(f"instantiations to head_dim 128 whose SASS differs: {differ}")
     return 0
 

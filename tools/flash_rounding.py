@@ -103,7 +103,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
-    name, sources, signatures = ops._LIBRARIES["tensor_core"]
+    name, sources, signatures, _ = ops._LIBRARIES["tensor_core"]
     libs = {"tile sums": ops.load("tensor_core")}
     if args.chained:
         src = _build.BUILD_DIR / "flash_attention_wgmma_chained.cu"
