@@ -1,13 +1,17 @@
 """Palpascope observability layer: causal tracing, metrics, attribution.
 
-Copied unchanged from ``src/repro/core/obs.py``: the port keeps its own
-copy and imports nothing from ``repro``.
+Copied from ``src/repro/core/obs.py``: the port keeps its own copy and
+imports nothing from ``repro``.  The port adds the language-model
+path's spans (:func:`program_span`), which are ``torch.profiler`` ranges
+and not Palpascope's: the LM path runs on a card, and a profiler stamps
+its ranges on the clock of the card's own records.
 
-Zero-dependency (stdlib + the simulation's own virtual clocks) and
-off by default: every request-path hook goes through a module-level
-:data:`NULL_TRACER` whose methods are constant-returning no-ops, so an
-untraced run pays a handful of attribute lookups per op (gated in
-``bench_overhead.py`` as ``tracing_overhead_ratio``).
+Palpascope itself needs only the standard library and the simulation's
+virtual clocks, and is off by default: every request-path hook goes
+through a module-level :data:`NULL_TRACER` whose methods are
+constant-returning no-ops, so an untraced run pays a handful of
+attribute lookups per op (gated in ``bench_overhead.py`` as
+``tracing_overhead_ratio``).
 
 Three instruments, one module:
 
@@ -58,6 +62,7 @@ __all__ = [
     "percentile", "latency_percentiles",
     "PrefetchCause", "AttributionTable",
     "span_kind_breakdown", "critical_path",
+    "PROGRAM_PREFIX", "PROGRAM_SPANS", "NULL_RANGE", "program_span",
 ]
 
 # ---------------------------------------------------------------------------
@@ -105,10 +110,71 @@ METRIC_PREFILL_S = "prefill_s"
 METRIC_DECODE_S = "decode_s"
 METRIC_TOKENS = "tokens"
 
+# span kinds of the language-model path (program_span): the dense
+# model's calls and blocks, and the trainer's update
+SPAN_PREFILL = "prefill"              # models.prefill, the whole call
+SPAN_DECODE_STEP = "decode_step"      # models.decode_step, the whole call
+SPAN_NORM = "norm"                    # a block's norm
+SPAN_ROPE = "rope"                    # rotary embedding of q and k
+SPAN_ATTEND = "attend"                # softmax(q k^T) v, the kernel or plain
+SPAN_OPTIMIZER = "optimizer"          # a train step's AdamW update
+
 REGISTERED_NAMES = frozenset(
     v for k, v in list(globals().items())
     if k.startswith(("SPAN_", "EVENT_", "METRIC_")) and isinstance(v, str)
 )
+
+#: the kinds :func:`program_span` opens, in the order of the table above
+PROGRAM_SPANS = (
+    SPAN_PREFILL, SPAN_DECODE_STEP, SPAN_NORM, SPAN_ROPE, SPAN_ATTEND,
+    SPAN_OPTIMIZER,
+)
+
+
+# ---------------------------------------------------------------------------
+# The language-model path's spans, on the profiler's clock
+# ---------------------------------------------------------------------------
+
+#: a program span's range is named ``PROGRAM_PREFIX + kind``
+PROGRAM_PREFIX = "repro_torch."
+
+
+class _NullRange:
+    """The do-nothing range, shared: what :func:`program_span` returns
+    wherever no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NULL_RANGE = _NullRange()
+
+#: torch's check that a profiler records, bound at the first span so that
+#: Palpascope's users never load the profiler
+_profiling = None
+
+
+def program_span(kind: str):
+    """A span of the LM path: while a ``torch.profiler`` records on this
+    thread, its range ``repro_torch.<kind>`` (``record_function``), which
+    the profiler keeps with its trace and stamps on the clock of the
+    card's own records; otherwise :data:`NULL_RANGE`, so that an
+    untraced call allocates nothing and enters no range.  ``kind`` is one
+    of :data:`PROGRAM_SPANS`.  Spans are on exactly when a profiler
+    records: there is no other switch."""
+    global _profiling
+    if _profiling is None:
+        from torch._C._autograd import _profiler_enabled as _profiling
+    if not _profiling():
+        return NULL_RANGE
+    from torch.profiler import record_function
+
+    return record_function(PROGRAM_PREFIX + kind)
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,7 @@ import torch
 
 import torch.distributed as dist
 
+from ..core.obs import SPAN_ATTEND, SPAN_ROPE, program_span
 from ..kernels.flash_attention import ops as flash_ops
 from ..sharding import place, tp
 from .blocked_attention import blocked_attention
@@ -104,11 +105,13 @@ def _whole_attention(p, cfg, x, positions, *, causal, kv_x, use_rope):
     k = _split_heads(src @ p["wk"], hkv, hd)
     v = _split_heads(src @ p["wv"], hkv, hd)
     if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        kv_pos = positions if kv_x is None else torch.arange(
-            src.shape[1], device=src.device)[None]
-        k = rope(k, kv_pos, cfg.rope_theta)
-    out = _attend(cfg, q, k, v, causal=causal)
+        with program_span(SPAN_ROPE):
+            q = rope(q, positions, cfg.rope_theta)
+            kv_pos = positions if kv_x is None else torch.arange(
+                src.shape[1], device=src.device)[None]
+            k = rope(k, kv_pos, cfg.rope_theta)
+    with program_span(SPAN_ATTEND):
+        out = _attend(cfg, q, k, v, causal=causal)
     b, s, _, _ = out.shape
     return out.reshape(b, s, hq * hd) @ p["wo"], (k, v)
 
@@ -164,17 +167,19 @@ def _tp_attention(p, cfg, x, positions, t: tp.TP, seq: bool, *,
     k, k_all = _heads(p, "wk", src, hkv, hd, plan.kv0, plan.kv1, t)
     v, v_all = _heads(p, "wv", src, hkv, hd, plan.kv0, plan.kv1, t)
     if use_rope:
-        kv_pos = positions if kv_x is None else torch.arange(
-            src.shape[1], device=src.device)[None]
-        q = rope(q, positions, cfg.rope_theta)
-        k_all = None if k_all is None else rope(k_all, kv_pos,
-                                                cfg.rope_theta)
-        k = (rope(k, kv_pos, cfg.rope_theta) if k_all is None
-             else k_all[:, :, plan.kv0:plan.kv1])
+        with program_span(SPAN_ROPE):
+            kv_pos = positions if kv_x is None else torch.arange(
+                src.shape[1], device=src.device)[None]
+            q = rope(q, positions, cfg.rope_theta)
+            k_all = None if k_all is None else rope(k_all, kv_pos,
+                                                    cfg.rope_theta)
+            k = (rope(k, kv_pos, cfg.rope_theta) if k_all is None
+                 else k_all[:, :, plan.kv0:plan.kv1])
     if plan.kv_index is not None:
         index = torch.as_tensor(plan.kv_index, device=x.device)
         k, v = k.index_select(2, index), v.index_select(2, index)
-    out = _attend(cfg, q, k, v, causal=causal)
+    with program_span(SPAN_ATTEND):
+        out = _attend(cfg, q, k, v, causal=causal)
     out = out.reshape(b, s, -1)[..., plan.c0:plan.c1]
     out = out @ place.local(raw(p, "wo"), keep_model=True)
     out = tp.reduce_scatter(out, 1, t) if seq else tp.reduce_from(out, t)
@@ -244,12 +249,14 @@ def decode_attention(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
     k = _split_heads(x @ p["wk"], hkv, hd)
     v = _split_heads(x @ p["wv"], hkv, hd)
     if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        with program_span(SPAN_ROPE):
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
     k_cache[:, pos:pos + s] = k
     v_cache[:, pos:pos + s] = v
-    out = _reference_attention(q, k_cache, v_cache, causal=False,
-                               kv_valid=pos + 1)
+    with program_span(SPAN_ATTEND):
+        out = _reference_attention(q, k_cache, v_cache, causal=False,
+                                   kv_valid=pos + 1)
     out = out.reshape(b, s, hq * hd) @ p["wo"]
     return out, k_cache, v_cache
 
@@ -276,16 +283,18 @@ def _tp_decode_attention(p, cfg, x, k_cache, v_cache, pos: int,
         _, v = _heads(p, "wv", x, hkv, hd, 0, hkv, t, whole=True)
         lo = t.i * k_cache.shape[1] if cache_dim == 1 else 0
     if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        with program_span(SPAN_ROPE):
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
     if lo <= pos < lo + k_cache.shape[1]:
         k_cache[:, pos - lo:pos - lo + s] = k
         v_cache[:, pos - lo:pos - lo + s] = v
-    if cache_dim == 1:
-        out = _seq_block_attention(q, k_cache, v_cache, pos + 1 - lo, t)
-    else:
-        out = _reference_attention(q, k_cache, v_cache, causal=False,
-                                   kv_valid=pos + 1)
+    with program_span(SPAN_ATTEND):
+        if cache_dim == 1:
+            out = _seq_block_attention(q, k_cache, v_cache, pos + 1 - lo, t)
+        else:
+            out = _reference_attention(q, k_cache, v_cache, causal=False,
+                                       kv_valid=pos + 1)
     out = out.reshape(b, s, -1)
     if cache_dim != 2:
         out = out[..., plan.q0 * hd:plan.q1 * hd]

@@ -83,6 +83,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.obs import SPAN_DECODE_STEP, SPAN_NORM, SPAN_PREFILL, program_span
 from ..device import resolve_device
 from ..sharding import place, tp
 from ..sharding.place import local
@@ -427,10 +428,12 @@ def _dense_block(cfg, p: DenseBlock, x: torch.Tensor,
     """One block; returns (x, (k, v)) with the block's k/v heads.  With
     ``t``, tensor-parallel (``x`` this rank's block of the sequence under
     ``seq``)."""
-    h = _norm(cfg, p.ln1, x, seq)
+    with program_span(SPAN_NORM):
+        h = _norm(cfg, p.ln1, x, seq)
     a, kv = attention(p.attn, cfg, h, positions, t=t, seq=seq)
     x = x + a
-    h = _norm(cfg, p.ln2, x, seq)
+    with program_span(SPAN_NORM):
+        h = _norm(cfg, p.ln2, x, seq)
     return x + _ffn(cfg, p, h, t, seq), kv
 
 
@@ -781,6 +784,11 @@ def fill_cache(cfg, model, batch: dict, cache: dict) -> dict:
 def prefill(cfg, model, batch: dict, max_len: int):
     """Run the full prompt, build the decode cache, return the last
     position's logits (B, 1, V) and the cache."""
+    with program_span(SPAN_PREFILL):
+        return _prefill(cfg, model, batch, max_len)
+
+
+def _prefill(cfg, model, batch: dict, max_len: int):
     t = _tp_axis(cfg, model)
     cache = init_cache(cfg, batch["tokens"].shape[0], max_len,
                        device="meta" if t else model.device)
@@ -798,6 +806,11 @@ def prefill(cfg, model, batch: dict, max_len: int):
 @torch.no_grad()
 def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     """One decode step.  tokens: (B, 1) -> (logits (B, 1, V), cache)."""
+    with program_span(SPAN_DECODE_STEP):
+        return _decode_step(cfg, model, cache, tokens)
+
+
+def _decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
     pos = cache["pos"]
     dt = _dt(cfg)
     t = _tp_axis(cfg, model)
@@ -827,11 +840,13 @@ def decode_step(cfg, model, cache: dict, tokens: torch.Tensor):
         cache["pos"] = pos + 1
         return _unembed(cfg, model, x, t), cache
     for i, p in enumerate(model.layers):
-        h = norm_apply(p.ln1, x, cfg.norm)
+        with program_span(SPAN_NORM):
+            h = norm_apply(p.ln1, x, cfg.norm)
         a, _, _ = decode_attention(p.attn, cfg, h, kc[i], vc[i], pos, t=t,
                                    cache_dim=dim)
         x = x + a
-        h = norm_apply(p.ln2, x, cfg.norm)
+        with program_span(SPAN_NORM):
+            h = norm_apply(p.ln2, x, cfg.norm)
         x = x + _ffn(cfg, p, h, t)
     cache["pos"] = pos + 1
     return _unembed(cfg, model, x, t), cache

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..core.obs import SPAN_OPTIMIZER, program_span
 from ..models import decode_step as model_decode
 from ..models import forward, loss_fn
 from ..sharding import place
@@ -175,7 +176,8 @@ def make_steps(cfg, opt_cfg: Optional[OptConfig] = None, *,
             _, metrics, grads = grads_of(params, model, batch)
         if compress_grads:
             grads = _compress_round_trip(grads)
-        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, opt)
+        with program_span(SPAN_OPTIMIZER):
+            _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, opt)
         if mesh is not None:
             opt_metrics = {k: v.full_tensor() if place.is_dtensor(v) else v
                            for k, v in opt_metrics.items()}
