@@ -65,8 +65,10 @@ Phases, in order; any failure exits non-zero and none is caught:
    weights from seed 0 made on the card, ``attention_impl="pallas"``,
    through ``ServingEngine``: 3 requests of batch 4 x prompt 2,048 x 32
    greedy tokens.  Every prefill layer must launch the tensor-core flash
-   kernel (32 x 3), never the split-TF32 one and never the plain version.
-   One prefill and one decode step are profiled.
+   kernel (32 x 3), never the split-TF32 one and never the plain version;
+   every decode step's layer the decode-attention kernel (32 x 32 x 3),
+   never its plain version.  One prefill and one decode step are
+   profiled.
 7. Serving against the plain path: the first request's bf16 prefill
    logits against ``attention_impl="reference"``, within 5% of their
    standard deviation or within bf16's own floor, measured by running
@@ -88,7 +90,12 @@ Phases, in order; any failure exits non-zero and none is caught:
    the split-TF32 kernel in f32 at head_dim 512 (its wide kernel).  Past
    head_dim 128 each timing prints the products the kernel counted in one
    call (``ops.counted_products``), q.k and P.V apart, and how many times
-   q.k was issued a (q tile, kv tile) pair.
+   q.k was issued a (q tile, kv tile) pair.  Then the decode-attention
+   kernel in bf16 at the benchmark's decode batch and at phase 6's batch
+   4 (``decode_timing``): CUDA events over many launches on caches larger
+   than the L2 and the profiler's device time, beside its bytes bound,
+   the decode step's plain path, its plain version and SDPA on the valid
+   slice.
 9. Decision walk: the ``"torch"`` decision engine on the card in lockstep
    with the numpy engine over the SEQB client's index and the stage-2
    requests, for each heuristic (equal waves at every op); the per-op
@@ -241,6 +248,8 @@ FLASH_KERNELS = {
                "flash_attention/csrc/flash_attention_tf32x3.cu"),
 }
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention/flash_attention.py:112"
+DECODE_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
+                 "decode_attention.cu")
 DEVICE = "cuda"
 
 #: the serving run: codeqwen1.5-7b (the default architecture of the
@@ -1081,6 +1090,8 @@ def serve_stage2(core, client, sessions) -> list:
 def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
     """Phase 6: the serving run on the card; returns what phase 7 needs."""
     from repro_torch import configs
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serving import ServeConfig, ServingEngine
 
@@ -1118,8 +1129,16 @@ def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
         per_request.append((after["prefill_s"] - before["prefill_s"],
                             after["decode_s"] - before["decode_s"]))
     counted = {"kernel": dict(fa_ops.counts), "plain": dict(fa_ref.counts)}
+    decoded = {"kernel": dict(da_ops.counts), "plain": dict(da_ref.counts)}
     peak = torch.cuda.max_memory_allocated()
-    print(f"serve path counts: {counted}")
+    print(f"serve path counts: {counted}; decode attention: {decoded}")
+    steps = cfg.n_layers * SERVE_NEW * SERVE_REQUESTS
+    if decoded["kernel"]["decode_attention"] != steps \
+            or any(decoded["plain"].values()):
+        raise AssertionError(f"the serving run did not launch the "
+                             f"decode-attention kernel once a layer a decode "
+                             f"step ({steps}), or ran its plain version: "
+                             f"{decoded}")
     want = cfg.n_layers * SERVE_REQUESTS
     if counted["kernel"] != {"flash_attention": want, "tensor_core": want,
                              "tf32x3": 0}:
@@ -1154,7 +1173,7 @@ def serve_main_path(torch, count_tables, fa_ops, fa_ref, card: str) -> dict:
     profiled(torch, lambda: decode_step(cfg, model, cache, tok))
     del cache
     return {"cfg": cfg, "model": model, "requests": requests, "outs": outs,
-            "counts": counted}
+            "counts": counted, "decode_counts": decoded}
 
 
 def logit_stats(torch, logits, ref) -> tuple:
@@ -1473,6 +1492,126 @@ def flash_timing(torch, fa_ops, fa_ref, fparity: FlashParity, cfg,
               + f" [{card}]")
         timing[key or which] = out
         del q, k, v, qkv
+    return timing
+
+
+#: decode attention's timed shapes (name, B, H, Lmax, valid) at head_dim
+#: 128 in bfloat16: the benchmark's decode batch (64 rows of 1,024 + 128
+#: tokens in a 1,152-slot cache, at the mean of its valid lengths) and
+#: phase 6's batch 4 (2,048 + 32 tokens, at the mean)
+DECODE_SHAPES = (("decode_batch", 64, 32, 1152, 1088),
+                 ("batch4", 4, 32, 2080, 2064))
+DECODE_HEAD_DIM = 128
+#: the H100's L2 (NVIDIA's data sheet): the timed launches rotate over
+#: caches that together hold at least four times it, so that each launch
+#: reads its cache from device memory
+L2_BYTES = 50e6
+#: launches a CUDA-event timing spans, and the timings a median is of
+DECODE_LAUNCHES, DECODE_REPS = 60, 7
+
+
+def events_ms(torch, fn: Callable[[int], object], launches: int,
+              reps: int) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``launches`` calls
+    ``fn(i)``, a call."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(launches):
+            fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def decode_timing(torch, da_ops, da_ref, card: str) -> dict:
+    """The decode-attention kernel at :data:`DECODE_SHAPES`, by CUDA events
+    over many launches that rotate over caches larger than the L2, beside
+    its bytes bound (k and v's valid rows read once at 3.35 TB/s), the
+    decode step's plain path (``_reference_attention`` over the whole
+    cache, as ``"reference"`` decodes), the kernel's plain version and
+    PyTorch's SDPA on the cache's valid slice (a yardstick, never on the
+    path).  The kernel's output is held to its plain version's within one
+    bf16 rounding first.  Returns each shape's numbers by name."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import _reference_attention
+
+    d, dtype = DECODE_HEAD_DIM, torch.bfloat16
+    timing = {}
+    for name, b, h, lmax, valid in DECODE_SHAPES:
+        cache_bytes = 2 * b * lmax * h * d * 2
+        n = max(1, -(-int(4 * L2_BYTES) // cache_bytes))
+        gen = torch.Generator(device=DEVICE).manual_seed(30)
+        qs = [torch.randn((b, 1, h, d), generator=gen, device=DEVICE)
+              .to(dtype) for _ in range(n)]
+        kvs = [tuple(torch.randn((b, lmax, h, d), generator=gen,
+                                 device=DEVICE).to(dtype) for _ in range(2))
+               for _ in range(n)]
+        got = da_ops.decode_attention(qs[0], *kvs[0], valid)
+        want = da_ref.decode_attention(qs[0], *kvs[0], valid)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5)
+        rounding = float((got != want).float().mean())
+        splits, rows = da_ops.plan(b * h, valid, torch.cuda
+                                   .get_device_properties(0)
+                                   .multi_processor_count)
+        before = dict(da_ops.counts)
+
+        def kernel(i):
+            return da_ops.decode_attention(qs[i % n], *kvs[i % n], valid)
+
+        out = {"ms": events_ms(torch, kernel, DECODE_LAUNCHES, DECODE_REPS)}
+        launched = {key: da_ops.counts[key] - before[key]
+                    for key in da_ops.counts}
+        calls = 3 + DECODE_LAUNCHES * DECODE_REPS
+        if launched != {"decode_attention": calls,
+                        "merge": calls * int(splits > 1)}:
+            raise AssertionError(f"decode_attention counted {launched} "
+                                 f"launches over {calls} calls of "
+                                 f"{splits} split(s)")
+        # the device's own time, which the host's launch rate cannot hide
+        # where a call is shorter than its launch
+        out["device_ms"] = device_work(torch, lambda: kernel(0),
+                                       "decode_attention")["kernel_ms"]
+        out["plain_path_ms"] = events_ms(
+            torch, lambda i: _reference_attention(
+                qs[i % n], *kvs[i % n], causal=False, kv_valid=valid), 5, 3)
+        out["plain_ms"] = events_ms(
+            torch, lambda i: da_ref.decode_attention(qs[i % n], *kvs[i % n],
+                                                     valid), 5, 3)
+        out["library_ms"] = events_ms(
+            torch, lambda i: F.scaled_dot_product_attention(
+                qs[i % n].transpose(1, 2),
+                kvs[i % n][0][:, :valid].transpose(1, 2),
+                kvs[i % n][1][:, :valid].transpose(1, 2)),
+            DECODE_LAUNCHES, DECODE_REPS)
+        n_bytes = 2 * b * valid * h * d * 2
+        out["bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        out.update(shape=[b, h, lmax, valid, d], bytes=n_bytes,
+                   splits=splits, split_rows=rows, caches=n,
+                   bound_share=out["bound_ms"] / out["ms"],
+                   tb_s=n_bytes / out["ms"] / 1e9, rounding_share=rounding)
+        print(f"decode_attention at B {b} H {h} Lmax {lmax} valid {valid} "
+              f"D {d} bf16 ({splits} split(s) of {rows} rows, {n} caches "
+              f"rotated): kernel {out['ms']:.4f} ms ({out['tb_s']:.3f} TB/s, "
+              f"{out['bound_share']:.4f} of the bound; "
+              f"{out['device_ms']:.4f} ms on the device by the profiler), "
+              f"bound "
+              f"{out['bound_ms']:.4f} ms ({n_bytes} B at 3.35 TB/s), plain "
+              f"path {out['plain_path_ms']:.4f} ms, plain version "
+              f"{out['plain_ms']:.4f} ms, SDPA on the valid slice "
+              f"{out['library_ms']:.4f} ms; {rounding:.5f} of its outputs "
+              f"round unlike the plain version's [{card}]")
+        timing[name] = out
+        del qs, kvs, got, want
+        torch.cuda.empty_cache()
     return timing
 
 
@@ -3749,6 +3888,8 @@ def main(argv=None) -> int:
     from repro_torch import core
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitmap_support import ops, ref
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -3756,7 +3897,8 @@ def main(argv=None) -> int:
     # the plain versions and the f32 serving check are exact f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    count_tables = (ops.counts, ref.counts, fa_ops.counts, fa_ref.counts)
+    count_tables = (ops.counts, ref.counts, fa_ops.counts, fa_ref.counts,
+                    da_ops.counts, da_ref.counts)
 
     # -- phase 1: environment -------------------------------------------
     smi = subprocess.run(
@@ -3770,8 +3912,9 @@ def main(argv=None) -> int:
           f"(building with {_build.nvcc_path()})")
     # one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         futs = {"bitmap_support": pool.submit(ops.load),
+                "decode_attention": pool.submit(da_ops.load),
                 **{r: pool.submit(fa_ops.load, r) for r in fa_ops.ROUTES}}
         libs = {name: fut.result() for name, fut in futs.items()}
     build_s = time.perf_counter() - t0
@@ -4137,6 +4280,7 @@ def main(argv=None) -> int:
     serve_cfg, first_prompts = srv["cfg"], srv["requests"][0]
     serve_requests = srv["requests"]
     serve_counts = srv["counts"]
+    serve_decode_counts = srv["decode_counts"]
     del srv                         # frees the bf16 model
     torch.cuda.empty_cache()
     f32_serve = f32_greedy_check(torch, fa_ops, first_prompts)
@@ -4145,6 +4289,7 @@ def main(argv=None) -> int:
 
     # -- phase 8: flash timing at the prefill shape -----------------------
     flash = flash_timing(torch, fa_ops, fa_ref, fparity, serve_cfg, card)
+    decode = decode_timing(torch, da_ops, da_ref, card)
 
     # phase 10's CPU run takes minutes of the host's time: it runs in a
     # process of its own beside the card's phases, read after phase 20
@@ -4336,6 +4481,21 @@ def main(argv=None) -> int:
             "bound_share", "tflop_s", "counted_qk_flop", "counted_pv_flop",
             "qk_per_tile_pair", "rounding_share",
             "shape") if t.get(k) is not None})
+    # the decode-attention kernel replaces no TPU kernel; it is the serve
+    # path's decode (phase 6's launches), timed at the benchmark's decode
+    # batch and at phase 6's batch 4
+    t = decode["decode_batch"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": None, "launches": serve_decode_counts["kernel"],
+        "path": "serve", "ms": t["ms"], "device_ms": t["device_ms"],
+        "plain_ms": t["plain_path_ms"], "plain_version_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": t["library_ms"], "bound_share": t["bound_share"],
+        "shape": t["shape"], "dtype": "bfloat16",
+        **{f"batch4_{k}": decode["batch4"][k] for k in (
+            "ms", "device_ms", "plain_path_ms", "plain_ms", "bound_ms",
+            "library_ms", "bound_share", "shape", "splits")}})
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

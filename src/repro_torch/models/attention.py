@@ -15,7 +15,13 @@ prefill path:
   (:func:`repro_torch.models.blocked_attention.blocked_attention`), the
   reference's ``custom_vjp`` training attention.
 
-Decode stays on the plain path, as in the reference.
+Decode follows the same field: under ``"pallas"`` a single-position
+step attends over its cache with the hand-written decode-attention kernel
+(:func:`repro_torch.kernels.decode_attention.ops.decode_attention`; its
+plain version on CPU tensors), which reads the cache once in its own
+dtype; otherwise it runs :func:`_reference_attention`, as the reference
+does.  A cache split along its sequence, and a decode step's cross
+attention, stay on their plain paths.
 
 With ``tp`` (the mesh's ``model`` axis, :mod:`repro_torch.sharding.tp`)
 and ``wo`` row-sharded there, attention (self, encoder and cross) is
@@ -44,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.obs import SPAN_ATTEND, SPAN_ROPE, program_span
+from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.flash_attention import ops as flash_ops
 from ..sharding import place, tp
 from .blocked_attention import blocked_attention
@@ -127,6 +134,15 @@ def _attend(cfg, q, k, v, *, causal: bool) -> torch.Tensor:
     if cfg.attention_impl == "blocked" and q.shape[1] > 1:
         return blocked_attention(q, k, v, causal=causal)
     return _reference_attention(q, k, v, causal=causal)
+
+
+def _decode_attend(cfg, q, k_cache, v_cache, valid: int) -> torch.Tensor:
+    """A decode step's attention of ``cfg.attention_impl`` over the first
+    ``valid`` positions of (B, Lmax, Hkv, D) caches."""
+    if cfg.attention_impl == "pallas" and q.shape[1] == 1:
+        return decode_ops.decode_attention(q, k_cache, v_cache, valid)
+    return _reference_attention(q, k_cache, v_cache, causal=False,
+                                kv_valid=valid)
 
 
 def _heads(p, name: str, x: torch.Tensor, n_heads: int, hd: int,
@@ -255,8 +271,7 @@ def decode_attention(p, cfg, x: torch.Tensor, k_cache: torch.Tensor,
     k_cache[:, pos:pos + s] = k
     v_cache[:, pos:pos + s] = v
     with program_span(SPAN_ATTEND):
-        out = _reference_attention(q, k_cache, v_cache, causal=False,
-                                   kv_valid=pos + 1)
+        out = _decode_attend(cfg, q, k_cache, v_cache, pos + 1)
     out = out.reshape(b, s, hq * hd) @ p["wo"]
     return out, k_cache, v_cache
 
@@ -293,8 +308,7 @@ def _tp_decode_attention(p, cfg, x, k_cache, v_cache, pos: int,
         if cache_dim == 1:
             out = _seq_block_attention(q, k_cache, v_cache, pos + 1 - lo, t)
         else:
-            out = _reference_attention(q, k_cache, v_cache, causal=False,
-                                       kv_valid=pos + 1)
+            out = _decode_attend(cfg, q, k_cache, v_cache, pos + 1)
     out = out.reshape(b, s, -1)
     if cache_dim != 2:
         out = out[..., plan.q0 * hd:plan.q1 * hd]

@@ -18,6 +18,8 @@ import chip_smoke  # noqa: E402
 from repro_torch.core import mining  # noqa: E402
 from repro_torch.core.sessions import SequenceDatabase  # noqa: E402
 from repro_torch.kernels.bitmap_support import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
@@ -336,7 +338,9 @@ def test_tensor_core_route_rejects_a_misaligned_base(card):
 
 def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
     """Reduced codeqwen, f32: the card's greedy tokens equal the CPU's,
-    and each prefill launches the kernel once per layer."""
+    each prefill launches the flash kernel once per layer, and each decode
+    step the decode-attention kernel once per layer (neither plain
+    version runs on the card)."""
     from repro_torch import configs
     from repro_torch.models import init_params
     from repro_torch.serving import ServeConfig, ServingEngine
@@ -349,6 +353,7 @@ def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
     on_cpu = ServingEngine(cfg, model, ServeConfig(max_len=32),
                            device="cpu").generate(prompts, 8)
     before = dict(fa_ops.counts), dict(fa_ref.counts)
+    decode_before = dict(da_ops.counts), dict(da_ref.counts)
     on_card = ServingEngine(cfg, model.cuda(), ServeConfig(max_len=32),
                             device="cuda").generate(prompts, 8)
     np.testing.assert_array_equal(on_card, on_cpu)
@@ -356,6 +361,9 @@ def test_serving_on_the_card_runs_the_kernel(card, no_tf32):
         before[0]["flash_attention"] + cfg.n_layers)
     assert fa_ops.counts["tf32x3"] == before[0]["tf32x3"] + cfg.n_layers
     assert fa_ref.counts == before[1]
+    assert da_ops.counts["decode_attention"] == (
+        decode_before[0]["decode_attention"] + 8 * cfg.n_layers)
+    assert da_ref.counts == decode_before[1]
 
 
 def test_bf16_serving_launches_only_the_tensor_core_kernel(card):
